@@ -8,16 +8,20 @@ Phases, in order; any failure exits nonzero without the final `ok` line:
                matmuls and cuDNN convolutions (LeNet stays f32).
   2. build   — compiles every CUDA kernel from `src/repro_torch/kernels`.
   3. kernels — each kernel against its plain PyTorch version on the card at
-               the main path's shapes, at K = 2 and at a ragged N; then
-               device times (CUDA-graph replay, inputs rotated through more
-               than the 50 MB L2) of the kernel, the plain version and, where
-               one exists, a single PyTorch call computing the same function.
+               the main path's shapes and at other cohort sizes and ragged
+               widths (ties and dead rows for `rank_band_mean`); then device
+               times (CUDA-graph replay, inputs rotated through more than the
+               50 MB L2) of the kernel, the plain version and, where one
+               exists, a single PyTorch call computing the same function.
   4. slice   — the paper's experiment through the port's entry points:
                Dirichlet(0.1) cifar10 split, 40 clients, LeNet-5 (N = 62,006),
                FedNCV (beta = 0, and beta = 1 "fedncv-lit"), cohort 10, K = 4,
-               micro_batch 16, local_epochs 2, 5 rounds on the card.  Checks
-               the launch counts, finiteness, and the parameters against a
-               CPU replay of the same draws through the plain versions.
+               micro_batch 16, local_epochs 2, 5 rounds on the card; then
+               3 rounds each of the compressed wire (int8, int4, bf16) and of
+               the robust aggregators (trimmed_mean, median over the int8
+               wire, norm_clip).  Checks the launch counts, `bytes_up`,
+               finiteness, and the parameters against a CPU replay of the
+               same draws through the plain versions.
   5. report  — one JSON line per kernel list, the card's name and power
                limit, then `{"ok": true, "device": {...}}` as the last line.
 
@@ -38,7 +42,10 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 ROUNDS = 5
+WIRE_ROUNDS = 3                # rounds of each compressed-wire / robust run
 PARAM_RTOL, PARAM_ATOL = 1e-3, 1e-4   # card vs CPU replay after 5 rounds
+# kernel vs plain version: f32 sums in another order, atol scaled to output
+KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-5
 
 
 def say(*a):
@@ -184,11 +191,148 @@ def kernel_phase(torch, K, ref):
     return reports
 
 
-def slice_phase(torch, np, K, card):
-    """The paper's FedNCV round on the card; returns the launch counts of
-    the main path's run (beta = 0)."""
+def check_scaled(name, got, want):
+    """Kernel vs plain version: rtol 1e-5, atol 1e-5 x max|want|."""
+    scale = float(want.abs().max()) or 1.0
+    check_close(name, got, want, KERNEL_RTOL, KERNEL_ATOL * scale)
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def bound_of(moved_bytes, ops):
+    return max((moved_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+               (ops / F32_OPS_PER_S * 1e3, "operations"))
+
+
+def wire_kernel_phase(torch, K, R, ref, rref, comm):
+    """The compressed-wire and robust kernels against their plain versions;
+    returns per-kernel reports."""
+    gen = torch.Generator().manual_seed(1)
+    reports = {}
+
+    def wire(name, m, n, chunk=512):
+        """A cohort's (M, n) uploads on the codec's wire, encoded on the
+        card as the simulator does."""
+        codec = comm.get_codec(name, n=n, chunk=chunk)
+        x = torch.randn(m, n, generator=gen).cuda() * \
+            torch.rand(m, 1, generator=gen).cuda()
+        u = torch.rand(codec.uniforms_shape(m), generator=gen).cuda()
+        w, _ = codec.encode(x, None, u)
+        return codec, w["q"], w["s"]
+
+    for kname, cname, kern, plain, replaces, row_bytes in (
+            ("ncv_weighted_sum_q", "int8", K.ncv_weighted_sum_q,
+             ref.ncv_weighted_sum_q_ref,
+             "src/repro/kernels/rloo/rloo.py:233", 1.0),
+            ("ncv_weighted_sum_q4", "int4", K.ncv_weighted_sum_q4,
+             ref.ncv_weighted_sum_q4_ref,
+             "src/repro/kernels/rloo/rloo.py:308", 0.5)):
+        errs = []
+        # the slice's shapes, bench_faults' full participation, the
+        # smallest cohort, a larger one, a chunk that is no multiple of
+        # the block
+        for m, n, chunk in ((10, 62006, 512), (12, 62006, 512),
+                            (2, 62006, 512), (40, 62006, 512),
+                            (7, 1299, 100)):
+            codec, q, sc = wire(cname, m, n, chunk)
+            w = (torch.rand(m, generator=gen) - 0.2).cuda()
+            agg, nrm = kern(q, sc, w, chunk=chunk)
+            agg_r, nrm_r = plain(q, sc, w, chunk=chunk)
+            torch.cuda.synchronize()
+            e = check_scaled(f"{kname} agg", agg, agg_r)
+            check_close(f"{kname} norm", nrm, nrm_r, 1e-4, 0.0)
+            again = kern(q, sc, w, chunk=chunk)
+            require(torch.equal(agg, again[0]) and torch.equal(nrm, again[1]),
+                    f"{kname} is not deterministic")
+            errs.append(e)
+            say(f"{kname} M={m} C={codec.n_chunks} chunk={chunk}: max abs "
+                f"err {e:.3e} (tol rtol {KERNEL_RTOL} atol {KERNEL_ATOL} x "
+                f"max|agg|; norm rtol 1e-4) deterministic")
+        m, c, chunk = 10, 122, 512
+        n_bytes = int(m * c * chunk * row_bytes)
+        bytes_in = n_bytes + 4 * m * c + 4 * m
+        ins = [wire(cname, m, 62006)[1:] for _ in range(n_rotating(bytes_in))]
+        w = torch.rand(m, generator=gen).cuda()
+        ms = graph_ms(torch, lambda i: kern(*ins[i], w), len(ins))
+        plain_ms = graph_ms(torch, lambda i: plain(*ins[i], w), len(ins))
+        moved = bytes_in + 4 * (c * chunk + 1)
+        # per code: convert, scale, weight, add; then the norm's square-add
+        bound_ms, bound_by = bound_of(moved, 4 * m * c * chunk + 2 * c * chunk)
+        reports[kname] = dict(
+            name=kname, route="cuda",
+            source="src/repro_torch/kernels/rloo/csrc/rloo_q.cu",
+            replaces=replaces, max_abs_err=max(errs), ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None)
+        say(f"{kname} (M,C,chunk)=({m},{c},{chunk}), {moved} bytes: "
+            f"kernel_ms={ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}) "
+            f"plain_ms={plain_ms:.5f} library_ms=none (no single call)")
+
+    # -- rank_band_mean: g (M, N), alive (M,), {lo, hi} on the device -------
+    def stack(m, n, ties):
+        g = torch.randn(m, n, generator=gen)
+        if ties:                          # a coarse grid: many ties
+            g = torch.round(g * 4.0) / 4.0
+        return g.cuda()
+
+    errs = []
+    for m, n, ties, dead in ((10, 62006, False, ()), (10, 62006, True, (3,)),
+                             (12, 62006, True, (0, 5)), (2, 62006, True, ()),
+                             (256, 62006, True, (1, 100, 255)),
+                             (33, 4099, True, (7, 8))):
+        g = stack(m, n, ties)
+        alive = torch.ones(m)
+        alive[list(dead)] = 0.0
+        alive = alive.cuda()
+        m_v = m - len(dead)
+        k, mid = min(1, (m_v - 1) // 2), (m_v - 1) // 2
+        for lo, hi in ((k, m_v - 1 - k), (mid, m_v - 1 - mid)):
+            lo_t = torch.tensor(float(lo), device="cuda")
+            hi_t = torch.tensor(float(hi), device="cuda")
+            agg, nrm = R.rank_band_mean(g, alive, lo_t, hi_t)
+            agg_r, nrm_r = rref.rank_band_mean_ref(g, alive, lo_t, hi_t)
+            torch.cuda.synchronize()
+            e = check_scaled("rank_band_mean", agg, agg_r)
+            check_close("rank_band_mean norm", nrm, nrm_r, 1e-4, 1e-6)
+            again = R.rank_band_mean(g, alive, lo_t, hi_t)
+            require(torch.equal(agg, again[0]) and torch.equal(nrm, again[1]),
+                    "rank_band_mean is not deterministic")
+            errs.append(e)
+        say(f"rank_band_mean M={m} N={n} ties={ties} dead={len(dead)} "
+            f"(tile {R.tile_width(m)}): max abs err {max(errs[-2:]):.3e} "
+            f"(tol rtol {KERNEL_RTOL} atol {KERNEL_ATOL} x max|agg|; norm "
+            f"rtol 1e-4) deterministic")
+    m, n = 10, 62006
+    bytes_in = 4 * (m * n + m + 2)
+    gs = [stack(m, n, False) for _ in range(n_rotating(bytes_in))]
+    alive = torch.ones(m, device="cuda")
+    # trimmed_mean's band at trim_frac 0.25 and m = 10: ranks 2..7
+    lo_t = torch.tensor(2.0, device="cuda")
+    hi_t = torch.tensor(7.0, device="cuda")
+    ms = graph_ms(torch, lambda i: R.rank_band_mean(gs[i], alive, lo_t,
+                                                     hi_t), len(gs))
+    plain_ms = graph_ms(torch, lambda i: rref.rank_band_mean_ref(
+        gs[i], alive, lo_t, hi_t), len(gs))
+    moved = bytes_in + 4 * (n + 1)
+    # per (row, row) pair: two compares, a multiply and an add; the band's
+    # test and sum per row, the mean and the norm per coordinate
+    bound_ms, bound_by = bound_of(moved, 4 * m * m * n + 4 * m * n + 3 * n)
+    reports["rank_band_mean"] = dict(
+        name="rank_band_mean", route="cuda",
+        source="src/repro_torch/kernels/robust/csrc/robust.cu",
+        replaces="src/repro/kernels/robust/robust.py:63",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None)
+    say(f"rank_band_mean (M,N)=({m},{n}), {moved} bytes: kernel_ms={ms:.5f} "
+        f"bound_ms={bound_ms:.5f} ({bound_by}) plain_ms={plain_ms:.5f} "
+        f"library_ms=none (no single call)")
+    return reports
+
+
+def make_world(torch):
+    """The slice's data, model and task: `benchmarks/bench_fl.py`'s
+    protocol (cifar10 stand-in at scale 0.5, Dirichlet(0.1), 40 clients)."""
     from repro_torch.data import federated_splits
-    from repro_torch.fed import FLConfig, Simulator, Task
+    from repro_torch.fed import Task
     from repro_torch.models import lenet
 
     t0 = time.perf_counter()
@@ -202,13 +346,26 @@ def slice_phase(torch, np, K, card):
     task = Task(loss=lambda p, b: lenet.loss_fn(cfg, p, b),
                 accuracy=lambda p, b: lenet.accuracy(cfg, p, b),
                 head_keys=lenet.HEAD_KEYS)
+    params0 = lenet.init(cfg, torch.Generator().manual_seed(0))
+    return dict(train=train, test=test, task=task, params0=params0)
+
+
+# the slice's FedNCV options (bench_fl's protocol, the quickstart's alpha)
+FL_KW = dict(method="fedncv", n_clients=40, cohort=10, k_micro=4,
+             micro_batch=16, server_lr=0.5, local_lr=0.05, local_epochs=2,
+             ncv_alpha0=0.3, ncv_alpha_lr=1e-5)
+
+
+def slice_phase(torch, np, K, card, world):
+    """The paper's FedNCV round on the card; returns the launch counts of
+    the main path's run (beta = 0)."""
+    from repro_torch.fed import FLConfig, Simulator
+
+    train, test, task = world["train"], world["test"], world["task"]
+    params0 = world["params0"]
     counts = None
     for label, beta in (("fedncv", 0.0), ("fedncv-lit", 1.0)):
-        fl = FLConfig.make(method="fedncv", n_clients=40, cohort=10,
-                           k_micro=4, micro_batch=16, server_lr=0.5,
-                           local_lr=0.05, local_epochs=2, ncv_alpha0=0.3,
-                           ncv_alpha_lr=1e-5, ncv_beta=beta)
-        params0 = lenet.init(cfg, torch.Generator().manual_seed(0))
+        fl = FLConfig.make(**FL_KW, ncv_beta=beta)
         # warm-up on a throwaway simulator (cuDNN plans, first launches)
         Simulator(task, params0, train, fl, seed=1).run_rounds(1)
         sim = Simulator(task, params0, train, fl, seed=0)
@@ -265,6 +422,159 @@ def slice_phase(torch, np, K, card):
     return counts
 
 
+# the compressed wire and the robust aggregators at full width, beta = 0 as
+# benchmarks/bench_comm.py and bench_faults.py run them: (label, options,
+# the kernel that carries the run's server reduction, once a round)
+WIRE_RUNS = (
+    ("fedncv-int8", dict(codec="int8"), "ncv_weighted_sum_q"),
+    ("fedncv-int4", dict(codec="int4"), "ncv_weighted_sum_q4"),
+    ("fedncv-bf16", dict(codec="bf16"), "ncv_weighted_sum"),
+    ("trimmed_mean", dict(aggregator="trimmed_mean", trim_frac=0.25),
+     "rank_band_mean"),
+    ("median-int8", dict(aggregator="median", codec="int8"),
+     "rank_band_mean"),
+    ("norm_clip", dict(aggregator="norm_clip"), "ncv_weighted_sum"),
+)
+# bytes_up at cohort 10: cohort x (codec.bytes_per_client() + FedNCV's 16
+# aux bytes), for N = 62,006 (122 chunks of 512)
+BYTES_UP = {"identity": 2480400, "bf16": 1240280, "int8": 625100,
+            "int4": 315070}
+# the same accounting at cohort 6, as BENCH_comm.json records it
+BYTES_UP_COHORT6 = {"identity": 1488240, "int8": 375060, "int4": 189042}
+# card vs CPU uploads from the same state: the share of values allowed off
+# the replay tolerance (stochastic rounding where x/scale + u sits within
+# f32 noise of an integer, max-pool near-ties; a wrong codec or client pass
+# would move most of them)
+MAX_OFF_SHARE = 1e-2
+
+
+def compare_uploads(codec, card, cpu, label):
+    """The card's and the CPU's uploads of one round from the same state,
+    as the server decodes them: within the replay tolerance except for a
+    rare share that a discontinuity moves (a rounding step of the codec, a
+    max-pool window whose two largest inputs swap).  Returns (values off
+    the tolerance, values compared)."""
+    from repro_torch.utils.tree_math import ravel_stack
+
+    if codec.name == "identity":
+        a, b = ravel_stack(card)[0].cpu(), ravel_stack(cpu)[0]
+    else:
+        a = codec.decode({k: v.cpu() for k, v in card.items()})
+        b = codec.decode(cpu)
+    err = (a - b).abs()
+    off = err > PARAM_ATOL + PARAM_RTOL * b.abs()
+    n_off = int(off.sum())
+    require(n_off <= MAX_OFF_SHARE * off.numel(),
+            f"{label}: {n_off} of {off.numel()} uploaded values off the "
+            f"tolerance (max abs err {float(err.max()):.3e})")
+    return n_off, off.numel()
+
+
+def wire_slice_phase(torch, np, kernels, card, world):
+    """The compressed wire and the robust aggregators on the card; returns
+    the launch count of each run's server kernel, from the first run that
+    uses it."""
+    from repro_torch import comm
+    from repro_torch.fed import FLConfig, Simulator
+    from repro_torch.utils.tree_math import tree_map
+
+    class Recording(Simulator):
+        """Keeps, by reference, each round's starting params and state and
+        the output of its client section (the uploads on the wire), so the
+        CPU replay can start each round where the card did."""
+
+        def _client_section_local(self, params, state, draws):
+            pending = super()._client_section_local(params, state, draws)
+            self.record.append((params, state, pending))
+            return pending
+
+    for name, want in BYTES_UP_COHORT6.items():
+        got = 6 * (comm.get_codec(name, n=62006).bytes_per_client() + 16)
+        require(got == want, f"{name}: bytes_up at cohort 6 is {got}, "
+                             f"BENCH_comm.json has {want}")
+    train, test, task = world["train"], world["test"], world["task"]
+    params0 = world["params0"]
+    counts = {}
+    for label, kw, kname in WIRE_RUNS:
+        fl = FLConfig.make(**FL_KW, ncv_beta=0.0, **kw)
+        # warm-up on a throwaway simulator (cuDNN plans, first launches)
+        Simulator(task, params0, train, fl, seed=1).run_rounds(1)
+        sim = Recording(task, params0, train, fl, seed=0)
+        sim.record = []
+        draws = [sim.draw_round() for _ in range(WIRE_ROUNDS)]
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        diags = sim.run_rounds(WIRE_ROUNDS, draws=draws)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / WIRE_ROUNDS
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        want = {n: 0 for n in kernels}
+        want["rloo_combine"] = 2 * WIRE_ROUNDS
+        want[kname] = WIRE_ROUNDS
+        require(launches == want, f"{label}: launches {launches}, want "
+                                  f"{want}")
+        counts.setdefault(kname, launches[kname])
+        require(all(float(b) == BYTES_UP[fl.codec]
+                     for b in diags["bytes_up"]),
+                f"{label}: bytes_up {diags['bytes_up']}, want "
+                f"{BYTES_UP[fl.codec]}")
+        pre = sim.evaluate(test)
+        finite = all(bool(torch.isfinite(v).all()) for v in
+                     sim.params.values()) and all(
+            np.isfinite(v).all() for v in diags.values()) and \
+            math.isfinite(pre)
+        require(finite, f"{label}: non-finite params or diagnostics")
+        say(f"{label} on {card}: {WIRE_ROUNDS} rounds, sec_per_round="
+            f"{sec:.4f}, launches {launches}, bytes_up="
+            f"{float(diags['bytes_up'][0]):.0f}, agg_norm="
+            f"{[float(x) for x in diags['agg_norm']]}, pre={pre:.4f}")
+
+        # the same draws through the plain versions on the CPU, each round
+        # from the card's starting state; the CPU's uploads are held to the
+        # card's, and its server section takes the card's uploads, so a
+        # single rounding step cannot carry over into later rounds
+        cpu = Simulator(task, params0, train, fl, seed=0, device="cpu")
+        worst, n_off, n_vals = 0.0, 0, 0
+        to_cpu = lambda tree: tree_map(lambda x: x.cpu(), tree)  # noqa: E731
+        for i, (p_card, st_card, pend_card) in enumerate(sim.record):
+            cpu.params, cpu._state = to_cpu(p_card), to_cpu(dict(st_card))
+            idx, sel, u = draws[i]
+            pend = cpu._client_section_local(
+                cpu.params, cpu._state,
+                (idx, sel, None if u is None else u.cpu()))
+            off, nv = compare_uploads(sim.codec, pend_card["grads"],
+                                     pend["grads"], f"{label} round {i}")
+            n_off, n_vals = n_off + off, n_vals + nv
+            for k in ("mean_norm_sq", "sum_norm_sq"):
+                check_close(f"{label} {k}", pend_card["aux"][k].cpu(),
+                            pend["aux"][k], PARAM_RTOL, 0.0)
+            pend["grads"] = to_cpu(pend_card["grads"])
+            cpu.params, cpu._state, cdiag = cpu._server_section(
+                cpu.params, cpu._state, pend, i + 1)
+            after = sim.record[i + 1] if i + 1 < len(sim.record) else (
+                sim.params, sim._state)
+            for key_, v in after[0].items():
+                worst = max(worst, check_close(
+                    f"{label} round {i} param {key_}", v.cpu(),
+                    cpu.params[key_], PARAM_RTOL, PARAM_ATOL))
+            check_close(f"{label} alphas", after[1]["alphas"].cpu(),
+                        cpu.alphas, 1e-5, 1e-7)
+            np.testing.assert_allclose(diags["agg_norm"][i],
+                                       float(cdiag["agg_norm"]), rtol=1e-3)
+            require(float(cdiag["bytes_up"]) == float(diags["bytes_up"][i]),
+                    f"{label}: bytes_up differs from the CPU replay")
+        cpre = cpu.evaluate(test)
+        require(abs(cpre - pre) <= 1e-2,
+                f"{label}: pre-test {pre} on the card, {cpre} on the CPU")
+        say(f"{label}: card vs CPU replay: max param abs err {worst:.3e} "
+            f"(tol rtol {PARAM_RTOL} atol {PARAM_ATOL}), uploaded values off "
+            f"the tolerance {n_off} of {n_vals}, pre {pre:.4f} vs {cpre:.4f} "
+            f"(tol 1e-2), agg_norm rtol 1e-3, bytes_up equal")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -272,8 +582,11 @@ def main() -> int:
         return 2
     import numpy as np
     from repro_torch.kernels import build
+    from repro_torch import comm
     from repro_torch.kernels.rloo import ref
     from repro_torch.kernels.rloo import rloo as K
+    from repro_torch.kernels.robust import ref as rref
+    from repro_torch.kernels.robust import robust as R
 
     say("== phase 1: device")
     kind = torch.cuda.get_device_name(0)
@@ -295,13 +608,23 @@ def main() -> int:
 
     say("== phase 3: kernels vs plain versions")
     reports = kernel_phase(torch, K, ref)
+    reports.update(wire_kernel_phase(torch, K, R, ref, rref, comm))
 
     say("== phase 4: slice")
-    counts = slice_phase(torch, np, K, card)
+    world = make_world(torch)
+    counts = slice_phase(torch, np, K, card, world)
+    kernels = dict(rloo_combine=K.rloo_combine,
+                   ncv_weighted_sum=K.ncv_weighted_sum,
+                   ncv_weighted_sum_q=K.ncv_weighted_sum_q,
+                   ncv_weighted_sum_q4=K.ncv_weighted_sum_q4,
+                   rank_band_mean=R.rank_band_mean)
+    for name, n in wire_slice_phase(torch, np, kernels, card, world).items():
+        counts.setdefault(name, n)      # the main path's own count first
 
     say("== phase 5: report")
     kernels = []
-    for name in ("rloo_combine", "ncv_weighted_sum"):
+    for name in ("rloo_combine", "ncv_weighted_sum", "ncv_weighted_sum_q",
+                 "ncv_weighted_sum_q4", "rank_band_mean"):
         r = reports[name]
         kernels.append({**{k: r[k] for k in ("name", "route", "source",
                                              "replaces")},

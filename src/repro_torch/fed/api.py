@@ -9,7 +9,8 @@ name raises KeyError, an option no chosen strategy reads raises
 TypeError, a bad value raises ValueError.
 
 Ported so far: the methods `fedavg` and `fedncv`, the `uniform` sampler,
-the `mean` aggregator, the `identity` codec, fault model `none`, tracker
+the aggregators `mean`, `trimmed_mean`, `median` and `norm_clip`, the
+codecs `identity`, `bf16`, `int8` and `int4`, fault model `none`, tracker
 `none` and store `device`.  A name the reference has but the port does not
 yet raises KeyError saying so; it is never ignored.
 """
@@ -20,11 +21,12 @@ import typing as tp
 
 import torch
 
+from repro_torch import comm
 from repro_torch.core import control_variates as cv
 from repro_torch.fed import aggregators
 from repro_torch.fed import methods as M
 from repro_torch.fed import sampling
-from repro_torch.utils.tree_math import tree_map
+from repro_torch.utils.tree_math import ravel_stack, tree_map
 
 
 class MethodCtx(tp.NamedTuple):
@@ -102,14 +104,12 @@ _REGISTRY: dict[str, FedMethod] = {}
 _NOT_PORTED = {
     "method": ("fedglomo", "fedncv+", "fedper", "fedprox", "fedrep",
                "pfedsim", "scaffold"),
-    "codec": ("bf16", "int4", "int8", "lowrank", "topk"),
     "fault": ("byzantine", "dropout", "external", "markov", "straggler"),
     "tracker": ("composite", "csv", "jsonl", "memory", "stdout"),
     "store": ("host",),
 }
 # the ported option-less strategies of the other registries
-_PORTED = {"codec": ("identity",), "fault": ("none",), "tracker": ("none",),
-           "store": ("device",)}
+_PORTED = {"fault": ("none",), "tracker": ("none",), "store": ("device",)}
 
 
 def not_ported(kind: str, name: str, have) -> KeyError:
@@ -197,6 +197,23 @@ def scatter_cohort_states(fields: tuple[StateField, ...], state, idx,
     return new
 
 
+def with_codec(client_fn, codec):
+    """Compose a ctx-signature client fn with wire encoding.
+
+    The upload leaves the client compressed: the wrapped fn ravels
+    `ClientOut.grad` (leaves (C, ...)) into the flat (C, N) stack and
+    replaces it with the codec's stacked wire dict.  Its `key` argument
+    carries the encoder's randomness: the stochastic-rounding uniforms
+    (C, n_chunks, chunk) for int8 / int4, None for the others; the inner
+    client fn gets None (the ported clients draw nothing)."""
+    def fn(ctx, params, cstate, batches, key):
+        out = client_fn(ctx, params, cstate, batches, None)
+        vec, _ = ravel_stack(out.grad)
+        wire, _ = codec.encode(vec, None, key)
+        return out._replace(grad=wire)
+    return fn
+
+
 # ---------------------------------------------------------------------------
 # FLConfig (typed, validated construction)
 # ---------------------------------------------------------------------------
@@ -254,8 +271,8 @@ class FLConfig:
                              f"variate (beta != 0): cohort must be >= 2")
         if method.validate is not None:
             method.validate(self.mc)
-        for kind, name, opts in (("codec", self.codec, self.codec_opts),
-                                 ("fault", self.fault, self.fault_opts),
+        comm.validate_codec_opts(self.codec, self.codec_opts)
+        for kind, name, opts in (("fault", self.fault, self.fault_opts),
                                  ("tracker", self.tracker, self.tracker_opts),
                                  ("store", self.store, self.store_opts)):
             _check_name(kind, name)
@@ -287,13 +304,16 @@ class FLConfig:
         """Validated construction: every name must be registered (or raise
         that it is not ported yet), and every extra keyword must be an
         option one of the chosen strategies reads — COMMON_OPTIONS plus the
-        method's declared options, or the sampler's / aggregator's."""
+        method's declared options, or the codec's, sampler's or
+        aggregator's."""
         m = get_method(method)
-        for kind, name in (("codec", codec), ("fault", fault),
-                           ("tracker", tracker), ("store", store)):
+        comm.check_codec_name(codec)
+        for kind, name in (("fault", fault), ("tracker", tracker),
+                           ("store", store)):
             _check_name(kind, name)
         subsystems = (
             ("method", method, COMMON_OPTIONS | set(m.options), None),
+            ("codec", codec, set(comm.CODECS[codec].options), "codec_opts"),
             ("sampler", sampler,
              set(sampling.get_sampler(sampler).options), "sampler_opts"),
             ("aggregator", aggregator,
@@ -326,14 +346,15 @@ class FLConfig:
                     f"and in {dict_name}= — remove one")
             return {**ex, **kw}
 
-        s_opts = routed(subsystems[1][2], sampler_opts, "sampler",
+        c_opts = routed(subsystems[1][2], codec_opts, "codec", "codec_opts")
+        s_opts = routed(subsystems[2][2], sampler_opts, "sampler",
                         "sampler_opts")
-        a_opts = routed(subsystems[2][2], agg_opts, "aggregator", "agg_opts")
+        a_opts = routed(subsystems[3][2], agg_opts, "aggregator", "agg_opts")
         method_opts = {k: v for k, v in opts.items() if k in subsystems[0][2]}
         return cls(method=method, n_clients=n_clients, cohort=cohort,
                    k_micro=k_micro, micro_batch=micro_batch,
                    server_lr=server_lr, codec=codec,
-                   codec_opts=dict(codec_opts or {}), staleness=staleness,
+                   codec_opts=c_opts, staleness=staleness,
                    sampler=sampler, sampler_opts=s_opts,
                    aggregator=aggregator, agg_opts=a_opts,
                    fault=fault, fault_opts=dict(fault_opts or {}),

@@ -16,9 +16,10 @@ import typing as tp
 import torch
 from torch.func import grad, vmap
 
+from repro_torch import comm
 from repro_torch.core import control_variates as cv
 from repro_torch.utils.tree_math import (tree_axpy, tree_leaves, tree_map,
-                                         tree_mean, tree_scale)
+                                         tree_mean, tree_scale, unravel)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,9 +47,15 @@ class ClientOut(tp.NamedTuple):
     aux: tp.Any                  # scalar diagnostics dict, leaves (C,)
 
 
-def _aggregate(grads_stacked, n_samples, beta):
-    """Cohort aggregation over the dense flat path (identity wire)."""
-    return cv.networked_aggregate_flat(grads_stacked, n_samples, beta=beta)
+def _aggregate(grads_stacked, n_samples, beta, codec=None, spec=None):
+    """Cohort aggregation: the dense flat path (identity wire, `codec`
+    None), or straight off the codec's stacked wire."""
+    if codec is None:
+        return cv.networked_aggregate_flat(grads_stacked, n_samples,
+                                           beta=beta)
+    agg_vec, agg_norm = comm.aggregate_wire(codec, grads_stacked, n_samples,
+                                            beta=beta)
+    return unravel(agg_vec, spec), agg_norm
 
 
 def _microbatch_grads(task: Task, params, batches, per_client=False):

@@ -1,25 +1,32 @@
 """In-process FL simulator: the paper's protocol on one device.
 
 M clients with Dirichlet(alpha) non-IID shards, a sampled cohort per
-round, the cohort's local training, the server aggregation of the
-method, and pre-/post-personalization evaluation ("test before" /
-"test after" in Table 1), as `src/repro/fed/simulator.py` runs them on
-its synchronous, single-device, device-store, identity-wire path.
+round, the cohort's local training, the upload's wire encoding, the
+server aggregation, and pre-/post-personalization evaluation ("test
+before" / "test after" in Table 1), as `src/repro/fed/simulator.py` runs
+them on its synchronous, single-device, device-store path.
 
 Each round:
   `_draw_cohort_sel`      cohort indices + microbatch rows (host generator)
   `_gather_batch`         the (C, K, b, ...) batch from the resident data
   `_client_section_local` the cohort's client pass, cohort axis written out
                           (FedNCV: two `rloo_combine` launches at
-                          local_epochs=2)
-  `_server_section`       Eq. 10-12 via `ncv_weighted_sum`, then the
-                          method's server update (FedNCV: alpha adaptation)
+                          local_epochs=2), then the codec's encode of the
+                          (C, N) upload stack (`fl.codec`)
+  `_server_section`       the aggregator (`fl.aggregator`): Eq. 10-12 via
+                          `ncv_weighted_sum`, or straight off the int8 /
+                          int4 wire via `ncv_weighted_sum_q[4]`, or the
+                          robust reductions; then the method's server
+                          update (FedNCV: alpha adaptation)
 
-Draw-injection seam: `run_round(draws=(idx, sel))` and
-`run_rounds(n, draws=[...])` take the cohort `idx` (cohort,) and the
-microbatch rows `sel` (cohort, K, b) instead of drawing them, so a run can
-replay another's draws (the reference's, or a run on another device).
-Without them the draws come from a `torch.Generator` seeded with `seed`.
+Draw-injection seam: `run_round(draws=(idx, sel, u))` and
+`run_rounds(n, draws=[...])` take the cohort `idx` (cohort,), the
+microbatch rows `sel` (cohort, K, b) and, for the stochastic codecs (int8,
+int4), the rounding uniforms `u` (cohort, n_chunks, chunk) f32 in [0, 1)
+instead of drawing them, so a run can replay another's draws (the
+reference's, or a run on another device).  `u` may be left out or None.
+Without them, idx and sel come from a host `torch.Generator` seeded with
+`seed` and u from a generator on the simulator's device, seeded the same.
 
 The simulator runs on the CUDA device unless `device` says otherwise; it
 raises when no card is present instead of carrying on on the CPU.
@@ -30,6 +37,7 @@ import numpy as np
 import torch
 from torch.func import grad, vmap
 
+from repro_torch import comm
 from repro_torch.fed import aggregators
 from repro_torch.fed import api
 from repro_torch.fed import methods as M
@@ -72,6 +80,16 @@ class Simulator:
         self._sizes_host = _tensor(data["client_sizes"], torch.int64)
         self._gen = torch.Generator().manual_seed(int(seed))
         self._grad_spec = flat_spec(self.params, lead=0)
+        # client->server wire format (uploads share the params' structure)
+        self.codec = comm.get_codec(fl.codec, n=self._grad_spec.n,
+                                    **fl.codec_opts)
+        self._ugen = torch.Generator(device=dev).manual_seed(int(seed))
+        # non-identity codecs compress the upload at the end of the client
+        # fn; the server aggregates straight off the wire
+        self._client_update = self.method.client_update
+        if self.codec.name != "identity":
+            self._client_update = api.with_codec(self._client_update,
+                                                 self.codec)
         self.smp = sampling.get_sampler(fl.sampler)
         self._smp_opts = sampling.resolve_opts(self.smp, fl.sampler_opts)
         self.agg = aggregators.get_aggregator(fl.aggregator)
@@ -106,6 +124,20 @@ class Simulator:
         sel = torch.gather(self._pool[idx], 1, pos).clamp_min(0)
         return idx, sel.reshape(fl.cohort, fl.k_micro, fl.micro_batch)
 
+    def _draw_uniforms(self):
+        """The stochastic-rounding uniforms (cohort, n_chunks, chunk) of the
+        round's encode, from the device generator; None when the codec
+        rounds deterministically."""
+        if not self.codec.stochastic:
+            return None
+        return torch.rand(self.codec.uniforms_shape(self.fl.cohort),
+                          generator=self._ugen, device=self.device)
+
+    def draw_round(self):
+        """One round's draws (idx, sel, u) from the simulator's own
+        generators, in the form `run_round(draws=...)` replays."""
+        return (*self._draw_cohort_sel(), self._draw_uniforms())
+
     def _gather_batch(self, sel):
         """sel (cohort, K, b) dataset rows -> batch tree (cohort, K, b, ...)."""
         return {k: self.data[k][sel] for k in ("images", "labels")}
@@ -117,12 +149,15 @@ class Simulator:
         fl = self.fl
         idx, sel = (d.to(self.device, torch.int64) if torch.is_tensor(d)
                     else torch.from_numpy(np.array(d, dtype=np.int64)).to(
-                        self.device) for d in draws)
+                        self.device) for d in draws[:2])
+        u = draws[2] if len(draws) > 2 else None
+        u = self._draw_uniforms() if u is None else torch.as_tensor(
+            u, dtype=torch.float32).to(self.device)
         sizes = self.data["client_sizes"][idx].float()
         batches = self._gather_batch(sel)
         cstates = self._cohort_cstates(state, idx)
         ctx = api.MethodCtx(self.task, fl.mc)
-        outs = self.method.client_update(ctx, params, cstates, batches, None)
+        outs = self._client_update(ctx, params, cstates, batches, u)
         return dict(idx=idx, sizes=sizes, grads=outs.grad,
                     cstates=outs.cstate, aux=outs.aux)
 
@@ -135,15 +170,17 @@ class Simulator:
                                               pending["cstates"])
         # the uniform sampler does not reweight: the Eq. 10-12 effective
         # counts are the shard sizes themselves
+        codec = None if self.codec.name == "identity" else self.codec
         agg = aggregators.aggregate_stack(self.agg, self._agg_opts,
                                           pending["grads"], pending["sizes"],
-                                          method.beta(fl.mc))
+                                          method.beta(fl.mc), codec,
+                                          self._grad_spec)
         params, new_state, diag = method.server_update(ctx, params, agg,
                                                        new_state)
         diag = {k: v for k, v in diag.items()
                 if torch.is_tensor(v) and v.dim() == 0}
-        # identity wire: 4 bytes per parameter, plus the aux scalars
-        diag["bytes_up"] = float(fl.cohort * 4 * self._grad_spec.n
+        # uploaded bytes this round: the gradient wire plus the aux scalars
+        diag["bytes_up"] = float(fl.cohort * self.codec.bytes_per_client()
                                  + tree_bytes(aux))
         return params, new_state, diag
 
@@ -155,14 +192,14 @@ class Simulator:
         return diag
 
     def run_round(self, draws=None):
-        """One synchronous round; `draws` = (idx, sel) replays a draw.
+        """One synchronous round; `draws` = (idx, sel[, u]) replays a draw.
         Returns the round's scalar diagnostics as floats."""
         diag = self._round(self._draw_cohort_sel() if draws is None
                            else draws)
         return {k: float(v) for k, v in diag.items()}
 
     def run_rounds(self, n, draws=None):
-        """n rounds; `draws` is a sequence of n (idx, sel) pairs or None.
+        """n rounds; `draws` is a sequence of n (idx, sel[, u]) or None.
         Returns the stacked per-round diagnostics as float32 numpy arrays
         (one host sync, after the last round)."""
         if n <= 0:

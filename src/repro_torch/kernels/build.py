@@ -25,6 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # library name -> its sources, relative to repro_torch/kernels/
 LIBRARIES = {
     "rloo": ("rloo/csrc/rloo.cu",),
+    "rloo_q": ("rloo/csrc/rloo_q.cu",),
+    "robust": ("robust/csrc/robust.cu",),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

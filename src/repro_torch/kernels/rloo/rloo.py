@@ -9,6 +9,12 @@ of microbatch gradients: mean, reshaped units g' = g - alpha (K gbar - g) /
 sum_u w_u g_u over the (M, N) stack plus ||agg||^2; `ncv_aggregate`
 derives the weights with `ncv_coefficients`.
 
+`ncv_weighted_sum_q` / `ncv_weighted_sum_q4` — the same weighted sum
+straight off the int8 / packed-int4 wire (`csrc/rloo_q.cu`): the codes are
+dequantized in registers with their per-(client, chunk) scale and never
+written back as f32.  `ncv_aggregate_q` / `ncv_aggregate_q4` derive the
+weights with `ncv_coefficients`.
+
 A wrapper takes its plain version (`ref.py`) only for CPU tensors.  For a
 CUDA tensor it launches its kernel or raises; it never falls back.  Each
 wrapper counts its launches in its `launches` attribute.
@@ -20,10 +26,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.rloo.ref import (ncv_weighted_sum_ref,
+from repro_torch.kernels.rloo.ref import (ncv_weighted_sum_q4_ref,
+                                          ncv_weighted_sum_q_ref,
+                                          ncv_weighted_sum_ref,
                                           rloo_combine_ref)
 
 _FNS: dict = {}
+_QFNS: dict = {}
 
 
 def _lib():
@@ -41,11 +50,25 @@ def _lib():
     return _FNS
 
 
-def _check(name, t, ndim, device=None):
+def _qlib():
+    if not _QFNS:
+        lib = build.load("rloo_q")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.ncv_weighted_sum_q_i8, lib.ncv_weighted_sum_q4_u8):
+            fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+            fn.restype = ci
+        lib.rloo_q_threads_per_block.restype = ci
+        _QFNS.update(q8=lib.ncv_weighted_sum_q_i8,
+                     q4=lib.ncv_weighted_sum_q4_u8,
+                     threads=lib.rloo_q_threads_per_block())
+    return _QFNS
+
+
+def _check(name, t, ndim, device=None, dtype=torch.float32):
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
     if device is not None and t.device != device:
@@ -149,3 +172,85 @@ ncv_weighted_sum.launches = 0
 def ncv_aggregate(g, n_samples, beta=1.0):
     """Fused FedNCV server reduction: (agg (N,), ||agg||^2) of Eq. 10-12."""
     return ncv_weighted_sum(g, ncv_coefficients(n_samples, beta).to(g.device))
+
+
+def _check_wire(q, scales, w, chunk, codes_per_byte, dtype):
+    """Shapes of a stacked quantized wire; returns (M, C)."""
+    _check("q", q, 2, dtype=dtype)
+    _check("scales", scales, 2, q.device)
+    _check("w", w, 1, q.device)
+    m, n_bytes = q.shape
+    if chunk < codes_per_byte or chunk % codes_per_byte:
+        raise ValueError(f"chunk={chunk} must be a positive multiple of "
+                         f"{codes_per_byte}")
+    c = n_bytes * codes_per_byte // chunk
+    if c * chunk != n_bytes * codes_per_byte:
+        raise ValueError(f"q has {n_bytes} bytes a row, not a whole number "
+                         f"of chunks of {chunk} codes")
+    if tuple(scales.shape) != (m, c):
+        raise ValueError(f"scales has shape {tuple(scales.shape)}, expected "
+                         f"{(m, c)}")
+    if w.shape[0] != m:
+        raise ValueError(f"w has {w.shape[0]} entries for M={m}")
+    return m, c
+
+
+def _launch_wire(key, what, q, scales, w, m, c, chunk, n_threads_items):
+    _check_cuda(("q", q), ("scales", scales), ("w", w))
+    if not (1 <= m < 2**31 and 1 <= c * chunk < 2**31):
+        raise ValueError(f"{what} takes 1 <= M, C*chunk < 2**31, got M={m}, "
+                         f"C*chunk={c * chunk}")
+    fns = _qlib()
+    n_blocks = -(-n_threads_items // fns["threads"])
+    agg = torch.empty((c * chunk,), dtype=torch.float32, device=q.device)
+    parts = torch.empty((n_blocks,), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fns[key](q.data_ptr(), scales.data_ptr(), w.data_ptr(),
+                      agg.data_ptr(), parts.data_ptr(), m, c, chunk, stream)
+    _raise_on(rc, what)
+    return agg, parts.sum()
+
+
+def ncv_weighted_sum_q(q, scales, w, *, chunk=512):
+    """q (M, C*chunk) int8, scales (M, C) f32, w (M,) f32 ->
+    (agg (C*chunk,), ||agg||^2) with agg = sum_u w_u (q_u * s_u)."""
+    m, c = _check_wire(q, scales, w, chunk, 1, torch.int8)
+    if q.device.type == "cpu":
+        return ncv_weighted_sum_q_ref(q, scales, w, chunk=chunk)
+    out = _launch_wire("q8", "ncv_weighted_sum_q", q, scales, w, m, c, chunk,
+                       c * chunk)
+    ncv_weighted_sum_q.launches += 1
+    return out
+
+
+ncv_weighted_sum_q.launches = 0
+
+
+def ncv_weighted_sum_q4(qp, scales, w, *, chunk=512):
+    """qp (M, C*chunk/2) uint8 split-halves int4, scales (M, C) f32, w (M,)
+    f32 -> (agg (C*chunk,), ||agg||^2)."""
+    m, c = _check_wire(qp, scales, w, chunk, 2, torch.uint8)
+    if qp.device.type == "cpu":
+        return ncv_weighted_sum_q4_ref(qp, scales, w, chunk=chunk)
+    out = _launch_wire("q4", "ncv_weighted_sum_q4", qp, scales, w, m, c,
+                       chunk, c * chunk // 2)
+    ncv_weighted_sum_q4.launches += 1
+    return out
+
+
+ncv_weighted_sum_q4.launches = 0
+
+
+def ncv_aggregate_q(q, scales, n_samples, beta=1.0, *, chunk=512):
+    """`ncv_aggregate` straight off the int8 wire."""
+    return ncv_weighted_sum_q(
+        q, scales, ncv_coefficients(n_samples, beta).to(q.device),
+        chunk=chunk)
+
+
+def ncv_aggregate_q4(qp, scales, n_samples, beta=1.0, *, chunk=512):
+    """`ncv_aggregate` straight off the packed int4 wire."""
+    return ncv_weighted_sum_q4(
+        qp, scales, ncv_coefficients(n_samples, beta).to(qp.device),
+        chunk=chunk)

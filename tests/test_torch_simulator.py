@@ -2,8 +2,10 @@
 
 The port replays the reference's draws through its draw-injection seam:
 for 0-based round i the reference draws with
-`key = fold_in(PRNGKey(seed), i)`, `kd, _ = split(key)` and
-`_draw_cohort_sel(state, kd)`; fedavg and fedncv draw nothing else.
+`key = fold_in(PRNGKey(seed), i)`, `kd, kk = split(key)` and
+`_draw_cohort_sel(state, kd)`; fedavg and fedncv draw nothing else, and
+the int8 / int4 wire draws its rounding uniforms from `kk` per cohort
+slot (`reference_draws`).
 
 Tolerances and why:
   params  rtol 1e-4 / atol 1e-5 — three rounds of training compound the
@@ -12,9 +14,12 @@ Tolerances and why:
   alphas  rtol 1e-5 — one scalar update per round from S1;
   agg_norm rtol 1e-4 — a sum of 62,006 squares of the above;
   bytes_up equal — pure accounting;
+  wire codes — equal up to rare single steps, round by round (see
+          `test_quantized_rounds_match_reference`);
   evaluate within 1e-2 absolute — an argmax may flip on a near tie.
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -25,6 +30,7 @@ from repro.fed import Task as JTask
 from repro.models import lenet as jlenet
 from repro_torch.data import federated_splits as t_splits
 from repro_torch.fed import FLConfig, Simulator, Task
+from repro_torch.kernels.rloo.ref import unpack_int4_ref
 from repro_torch.models import lenet as tlenet
 from repro_torch.weights import params_from_jax
 
@@ -146,6 +152,11 @@ def test_own_draws_are_valid_and_seeded(world):
     (dict(method="fedncv", ncv_alpha_mode="greedy"), ValueError),
     (dict(method="fedncv", cohort=1, ncv_beta=1.0), ValueError),
     (dict(method="fedncv", codec="nope"), KeyError),
+    (dict(method="fedncv", codec="int8", codec_opts=dict(ratio=0.1)),
+     TypeError),
+    (dict(method="fedncv", aggregator="median", ncv_beta=1.0), ValueError),
+    (dict(method="fedncv", aggregator="trimmed_mean", ncv_beta=0.0,
+          agg_opts=dict(trim_frac=0.6)), ValueError),
 ])
 def test_flconfig_errors_match_reference(kw, err):
     args = dict(n_clients=6, cohort=3)
@@ -157,8 +168,8 @@ def test_flconfig_errors_match_reference(kw, err):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(method="scaffold"), dict(codec="int8"), dict(sampler="importance"),
-    dict(aggregator="median", ncv_beta=0.0), dict(fault="dropout"),
+    dict(method="scaffold"), dict(codec="topk"), dict(sampler="importance"),
+    dict(codec="lowrank"), dict(fault="dropout"),
     dict(tracker="jsonl"),
     dict(store="host"),
 ])
@@ -176,3 +187,130 @@ def test_simulator_without_device_raises_without_a_card(world, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Simulator(world["ttask"], world["tp"], world["ttrain"], fl,
                   device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# the compressed wire and the robust aggregators
+# ---------------------------------------------------------------------------
+
+FEDNCV = dict(local_epochs=2, ncv_alpha0=0.3, ncv_alpha_lr=1e-2)
+# deterministic wires: the port's own trajectory against the reference's
+WIRE_CASES = {
+    "bf16": dict(COMMON, codec="bf16", ncv_beta=1.0),
+    # cohort 5: trim_frac 0.25 drops one value at each end of a coordinate
+    "trimmed_mean": dict(COMMON, cohort=5, aggregator="trimmed_mean",
+                         trim_frac=0.25, ncv_beta=0.0),
+    "norm_clip": dict(COMMON, cohort=5, aggregator="norm_clip",
+                      ncv_beta=0.0),
+}
+# stochastic rounding: round by round from the reference's state
+QUANTIZED_CASES = {
+    "int8": dict(COMMON, codec="int8", ncv_beta=1.0),
+    "int4": dict(COMMON, codec="int4", ncv_beta=1.0),
+    "median-int8": dict(COMMON, cohort=5, aggregator="median",
+                        codec="int8", ncv_beta=0.0),
+}
+
+
+def reference_draws(jsim, i):
+    """The reference's draws of 0-based round i: (idx, sel, u), with u the
+    stochastic-rounding uniforms of each cohort slot's encode
+    (`_slot_keys` fold_in, then `with_codec`'s split) or None."""
+    key = jax.random.fold_in(jax.random.PRNGKey(SEED), i)
+    kd, kk = jax.random.split(key)
+    idx, sel, *_ = jsim._draw_cohort_sel(jsim._get_state(), kd)
+    codec = jsim.codec
+    u = None
+    if codec.name in ("int8", "int4"):
+        u = np.stack([np.asarray(jax.random.uniform(
+            jax.random.split(jax.random.fold_in(kk, s))[1],
+            (codec.n_chunks, codec.chunk)))
+            for s in range(jsim.fl.cohort)])
+    return np.asarray(idx), np.asarray(sel), u
+
+
+def _sims(world, kw):
+    jsim = JSimulator(world["jtask"], world["jp"], world["train"],
+                      JFLConfig.make(method="fedncv", **kw), seed=SEED)
+    tsim = Simulator(world["ttask"], world["tp"], world["ttrain"],
+                     FLConfig.make(method="fedncv", **kw), seed=SEED,
+                     device="cpu")
+    return jsim, tsim
+
+
+def _check_params(tsim, jsim):
+    for k, v in jsim.params.items():
+        np.testing.assert_allclose(tsim.params[k].numpy(), np.asarray(v),
+                                   rtol=1e-4, atol=1e-5, err_msg=k)
+    np.testing.assert_allclose(tsim.alphas.numpy(), np.asarray(jsim.alphas),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", list(WIRE_CASES))
+def test_wire_and_robust_rounds_match_reference(world, case):
+    kw = dict(WIRE_CASES[case], **FEDNCV)
+    jsim, tsim = _sims(world, kw)
+    draws, jdiags = [], []
+    for i in range(ROUNDS):
+        draws.append(reference_draws(jsim, i))
+        jdiags.append(jsim.run_round())
+    tdiags = tsim.run_rounds(ROUNDS, draws=draws)
+    _check_params(tsim, jsim)
+    np.testing.assert_allclose(tdiags["agg_norm"],
+                               [d["agg_norm"] for d in jdiags], rtol=1e-4)
+    np.testing.assert_array_equal(tdiags["bytes_up"],
+                                  np.float32([d["bytes_up"] for d in jdiags]))
+
+
+def _codes(codec, wire):
+    q = torch.as_tensor(np.array(wire["q"]))
+    if codec.name == "int4":
+        return unpack_int4_ref(q, chunk=codec.chunk).numpy()
+    return q.numpy().astype(np.int32)
+
+
+@pytest.mark.parametrize("case", list(QUANTIZED_CASES))
+def test_quantized_rounds_match_reference(world, case):
+    """Stochastic rounding is discontinuous: where x/scale + u lies within
+    f32 noise of an integer, the frameworks' convolutions (which differ by
+    about 1e-7) put the code one step apart, and one step of a chunk's
+    scale is far above the parameter tolerance.  So each of the three
+    rounds starts the port from the reference's state and replays the
+    round's (idx, sel, u): the wires must agree up to rare single-step
+    flips (codes bitwise given the same input: tests/test_torch_comm.py),
+    and the port's server section, given the reference's wire, must give
+    the reference's parameters at the usual tolerance."""
+    kw = dict(QUANTIZED_CASES[case], **FEDNCV)
+    jsim, tsim = _sims(world, kw)
+    jclient = jax.jit(jsim._client_section_local)
+    jserver = jax.jit(jsim._server_section)
+    for i in range(ROUNDS):
+        tsim.params = params_from_jax(jax.tree.map(np.asarray, jsim.params))
+        tsim._state["alphas"] = torch.from_numpy(np.array(jsim.alphas))
+        draws = reference_draws(jsim, i)
+        # the reference's round through its two sections, so that its
+        # server takes the very wire compared here (its one-jit round fuses
+        # otherwise, which moves codes too)
+        key = jax.random.fold_in(jax.random.PRNGKey(SEED), i)
+        jstate = jsim._get_state()
+        jpending = jclient(jsim.params, jstate, key)
+        jwire = jpending["grads"]
+        jsim.params, jstate, jdiag = jserver(jsim.params, jstate, jpending,
+                                             jnp.int32(i + 1))
+        jsim._set_state(jstate)
+        pending = tsim._client_section_local(tsim.params, tsim._state,
+                                             draws)
+        jcodes = _codes(jsim.codec, jwire)
+        tcodes = _codes(tsim.codec, pending["grads"])
+        assert np.abs(jcodes - tcodes).max() <= 1
+        assert np.count_nonzero(jcodes != tcodes) <= 1e-3 * jcodes.size
+        np.testing.assert_allclose(pending["grads"]["s"].numpy(),
+                                   np.asarray(jwire["s"]), rtol=1e-4)
+        pending["grads"] = {k: torch.from_numpy(np.array(v))
+                            for k, v in jwire.items()}
+        tsim.params, tsim._state, tdiag = tsim._server_section(
+            tsim.params, tsim._state, pending, i + 1)
+        _check_params(tsim, jsim)
+        np.testing.assert_allclose(float(tdiag["agg_norm"]),
+                                   float(jdiag["agg_norm"]), rtol=1e-4)
+        assert float(tdiag["bytes_up"]) == float(jdiag["bytes_up"])
