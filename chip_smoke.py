@@ -3,16 +3,22 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits nonzero without the final `ok` line:
+Phases, in order (each prints its seconds); any failure exits nonzero
+without the final `ok` line:
   1. device  — the card's name, count and power limit; TF32 off for
                matmuls and cuDNN convolutions (LeNet stays f32).
-  2. build   — compiles every CUDA kernel from `src/repro_torch/kernels`.
+  2. build   — compiles all five CUDA libraries from
+               `src/repro_torch/kernels` (one `nvcc` each, in parallel).
   3. kernels — each kernel against its plain PyTorch version on the card at
                the main path's shapes and at other cohort sizes and ragged
-               widths (ties and dead rows for `rank_band_mean`); then device
-               times (CUDA-graph replay, inputs rotated through more than the
-               50 MB L2) of the kernel, the plain version and, where one
-               exists, a single PyTorch call computing the same function.
+               widths (ties and dead rows for `rank_band_mean`); the flash
+               kernel at the llama3.2-3b and gemma2-9b prefill shapes (bf16),
+               the reference's sweep (f32) and ragged S; the scan at
+               falcon-mamba-7b's (1, 2048, 131072), the reference's sweep, a
+               batch axis and ragged S.  Then device times (CUDA-graph
+               replay, inputs rotated through more than the 50 MB L2) of the
+               kernel, the plain version and, where one exists, a single
+               PyTorch call computing the same function.
   4. slice   — the paper's experiment through the port's entry points:
                Dirichlet(0.1) cifar10 split, 40 clients, LeNet-5 (N = 62,006),
                FedNCV (beta = 0, and beta = 1 "fedncv-lit"), cohort 10, K = 4,
@@ -21,7 +27,13 @@ Phases, in order; any failure exits nonzero without the final `ok` line:
                the robust aggregators (trimmed_mean, median over the int8
                wire, norm_clip).  Checks the launch counts, `bytes_up`,
                finiteness, and the parameters against a CPU replay of the
-               same draws through the plain versions.
+               same draws through the plain versions.  Then the LM serving
+               slice at full width from random bf16 params: llama3.2-3b
+               (28 layers) prefill B 2 x S 4096, falcon-mamba-7b (64 layers)
+               B 1 x S 2048, gemma2-9b cut to 2 layers (one local/global
+               pair) B 1 x S 8192; after each prefill the serve loop (batch
+               8, prompt 32, decode 64); then each model in f32, prefill
+               logits against 64 teacher-forced decode steps.
   5. report  — one JSON line per kernel list, the card's name and power
                limit, then `{"ok": true, "device": {...}}` as the last line.
 
@@ -575,6 +587,284 @@ def wire_slice_phase(torch, np, kernels, card, world):
     return counts
 
 
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
+# flash kernel vs its plain version, (rtol, atol): f32, the reference
+# kernel tests' 2e-4; bf16, both compute in f32 and round to bf16 once, so
+# they differ by at most one bf16 step, at most 2^-7 of the value
+FLASH_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 1e-3)}
+SCAN_TOL = 2e-4                # sequential FMAs vs the doubling scan
+# prefill logits vs teacher-forced decode at full width, f32: the
+# reference's tests/test_decode_equivalence.py tolerances
+DECODE_TOL = {"dense": 2e-3, "ssm": 5e-3}
+
+
+def event_ms(torch, fn, n_inputs, reps=2):
+    """Device ms per call between CUDA events, rotating over `n_inputs`
+    inputs, after one warm-up round; for calls of milliseconds whose
+    temporaries run to gigabytes (the plain versions)."""
+    for i in range(n_inputs):
+        fn(i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        for i in range(n_inputs):
+            fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * n_inputs)
+
+
+def attn_pairs(s, causal, window):
+    """(query, key) pairs the mask keeps in one (b, h) plane of length s."""
+    total = 0
+    for qi in range(s):
+        lo = 0 if window is None else max(0, qi - window + 1)
+        hi = qi if causal else s - 1
+        total += hi - lo + 1
+    return total
+
+
+# the flash kernel's shapes: (label, b, s, h, kv, hd, dtype, causal, window,
+# softcap); the first two are the prefill's (timed), then the same shapes
+# in f32, tests/test_kernels.py's SWEEP in f32 and a ragged S
+FLASH_CASES = (
+    ("llama3.2-3b", 2, 4096, 24, 8, 128, "bfloat16", True, None, None),
+    ("gemma2-9b local", 1, 8192, 16, 8, 256, "bfloat16", True, 4096, 50.0),
+    ("llama3.2-3b f32", 2, 4096, 24, 8, 128, "float32", True, None, None),
+    ("gemma2-9b local f32", 1, 8192, 16, 8, 256, "float32", True, 4096,
+     50.0),
+    ("sweep 1", 2, 256, 4, 2, 128, "float32", True, None, None),
+    ("sweep 2", 1, 128, 4, 4, 64, "float32", True, None, None),
+    ("sweep 3", 1, 256, 2, 1, 128, "float32", True, 128, None),
+    ("sweep 4", 1, 256, 2, 2, 128, "float32", True, None, 30.0),
+    ("sweep 5", 2, 128, 4, 2, 96, "float32", False, None, None),
+    ("sweep 6", 1, 512, 8, 8, 32, "float32", True, 64, 50.0),
+    ("ragged", 1, 1000, 8, 2, 64, "float32", True, 300, None),
+    ("ragged bf16", 2, 1000, 8, 2, 128, "bfloat16", True, None, None),
+)
+# the scan's shapes (B, S, C): falcon-mamba-7b's prefill (C = d_inner * N =
+# 8,192 * 16), the reference's sweep, a batch axis and ragged lengths
+SCAN_CASES = ((1, 2048, 131072), (1, 128, 64), (1, 256, 256), (1, 512, 100),
+              (1, 1024, 32), (4, 2048, 512), (1, 1000, 4099), (3, 77, 1000))
+
+
+def mamba_like_ab(torch, gen, shape):
+    """a = exp(-dt n) and b as a Mamba-1 layer makes them: dt a softplus
+    near 0.018, n = 1..16 along the channel axis (the state index)."""
+    dt = torch.nn.functional.softplus(
+        torch.randn(shape, generator=gen) * 0.5 - 4.0)
+    n = torch.arange(shape[-1], dtype=torch.float32) % 16 + 1
+    a = torch.exp(-dt * n)
+    return a.cuda(), torch.randn(shape, generator=gen).cuda()
+
+
+def lm_kernel_phase(torch, card):
+    """The flash and selective-scan kernels against their plain versions;
+    returns per-kernel reports."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.selective_scan import selective_scan as SS
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+
+    gen = torch.Generator().manual_seed(2)
+    reports = {}
+    errs = []
+    for (label, b, s, h, kv, hd, dt, causal, window,
+         softcap) in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(b, s, n, hd, generator=gen).to(dtype).cuda()
+                   for n in (h, kv, kv))
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        got = FA.flash_attention(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        rtol, atol = FLASH_TOL[dt]
+        e = check_close(f"flash {label}", got.float(), want.float(), rtol,
+                        atol)
+        require(torch.equal(got, FA.flash_attention(q, k, v, **kw)),
+                f"flash_attention is not deterministic at {label}")
+        errs.append(e)
+        say(f"flash_attention {label} (B,S,H,KV,hd)=({b},{s},{h},{kv},{hd}) "
+            f"{dt} causal={causal} window={window} softcap={softcap}: max "
+            f"abs err {e:.3e} (tol rtol {rtol} atol {atol}), max |out| "
+            f"{float(want.float().abs().max()):.3f}, rms out "
+            f"{float(want.float().square().mean().sqrt()):.4f}; "
+            f"deterministic")
+        del q, k, v, got, want
+
+    timed = {}
+    for (label, b, s, h, kv, hd, dt, causal, window,
+         softcap) in FLASH_CASES[:2]:
+        dtype = getattr(torch, dt)
+        esize = torch.tensor([], dtype=dtype).element_size()
+        bytes_in = esize * b * s * hd * (h + 2 * kv)
+        ins = [tuple(torch.randn(b, s, n, hd, generator=gen).to(dtype).cuda()
+                     for n in (h, kv, kv))
+               for _ in range(n_rotating(bytes_in))]
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        ms = graph_ms(torch, lambda i: FA.flash_attention(*ins[i], **kw),
+                      len(ins), replays=3)
+        plain_ms = event_ms(torch, lambda i: flash_attention_ref(*ins[i],
+                                                                 **kw),
+                            len(ins))
+        library_ms = None
+        if softcap is None and window is None:
+            # the yardstick only: the port never calls it
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            library_ms = graph_ms(torch, lambda i: sdpa(
+                *(t.transpose(1, 2) for t in ins[i]), is_causal=causal,
+                enable_gqa=True), len(ins), replays=3)
+        moved = bytes_in + esize * b * s * h * hd
+        ops = 4 * hd * b * h * attn_pairs(s, causal, window)
+        bound_ms, bound_by = max((moved / HBM_BYTES_PER_S * 1e3, "bytes"),
+                                 (ops / BF16_OPS_PER_S * 1e3, "operations"))
+        timed[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=library_ms)
+        # the report line carries the main path's shape (llama3.2-3b)
+        lib = "none (no single call)" if library_ms is None else \
+            f"{library_ms:.5f} (scaled_dot_product_attention)"
+        say(f"flash_attention {label} on {card}, {moved} bytes, {ops} flops: "
+            f"kernel_ms={ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}) "
+            f"plain_ms={plain_ms:.5f} library_ms={lib}")
+        del ins
+    reports["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:70",
+        max_abs_err=max(errs), **timed["llama3.2-3b"])
+
+    errs = []
+    for shape in SCAN_CASES:
+        a, b = mamba_like_ab(torch, gen, shape)
+        h = SS.selective_scan(a, b)
+        hr = selective_scan_ref(a, b)
+        torch.cuda.synchronize()
+        e = check_close(f"selective_scan {shape}", h, hr, SCAN_TOL, SCAN_TOL)
+        require(torch.equal(h, SS.selective_scan(a, b)),
+                f"selective_scan is not deterministic at {shape}")
+        errs.append(e)
+        say(f"selective_scan (B,S,C)={shape}: max abs err {e:.3e} (tol rtol "
+            f"{SCAN_TOL} atol {SCAN_TOL}) deterministic")
+        del a, b, h, hr
+    shape = SCAN_CASES[0]
+    n_el = shape[0] * shape[1] * shape[2]
+    ins = [mamba_like_ab(torch, gen, shape)
+           for _ in range(n_rotating(8 * n_el))]
+    ms = graph_ms(torch, lambda i: SS.selective_scan(*ins[i]), len(ins),
+                  replays=5)
+    plain_ms = event_ms(torch, lambda i: selective_scan_ref(*ins[i]),
+                        len(ins))
+    moved = 12 * n_el
+    bound_ms, bound_by = bound_of(moved, 2 * n_el)
+    reports["selective_scan"] = dict(
+        name="selective_scan", route="cuda",
+        source="src/repro_torch/kernels/selective_scan/csrc/"
+               "selective_scan.cu",
+        replaces="src/repro/kernels/selective_scan/selective_scan.py:49",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None)
+    say(f"selective_scan (B,S,C)={shape} on {card}, {moved} bytes: "
+        f"kernel_ms={ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}) "
+        f"plain_ms={plain_ms:.5f} library_ms=none (no single call)")
+    return reports
+
+
+SERVE_DECODE = 64              # tokens the serve loop decodes
+CHECK_LEN = 64                 # tokens of the f32 prefill-vs-decode check
+
+
+def lm_slice_phase(torch, card, kernels):
+    """Prefill and the serve loop of each model at full width on the card,
+    then the f32 prefill against teacher-forced decode; returns each
+    kernel's launches from the first prefill that runs it."""
+    from repro_torch.launch.profile_lm import (DECODE_BATCH, PROMPT, RUNS,
+                                              setup)
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import make_prefill_step, make_serve_step
+    from repro_torch.models import api
+
+    counts = {}
+    for run in RUNS:
+        arch, b, s, kname = run.arch, run.batch, run.seq, run.kernel
+        t0 = time.perf_counter()
+        cfg, params, tgen = setup(run)
+        n_param = sum(v.numel() for v in params["layers"].values()) + \
+            params["embed"].numel()
+        prefill = make_prefill_step(cfg)
+        prefill(params, api.make_batch(cfg, tgen, 1, 256, device="cuda"))
+        batch = api.make_batch(cfg, tgen, b, s, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launches = 0
+        t1 = time.perf_counter()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t1
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        want = {n: 0 for n in kernels}
+        want[kname] = run.launches
+        require(launches == want, f"{arch} prefill: launches {launches}, "
+                                  f"want {want}")
+        counts.setdefault(kname, launches[kname])
+        require(tuple(logits.shape) == (b, s, cfg.vocab) and
+                bool(torch.isfinite(logits).all()),
+                f"{arch}: prefill logits {tuple(logits.shape)} not finite "
+                f"or of the wrong shape")
+        say(f"{arch} ({cfg.n_layers} layers, {n_param} params, {cfg.dtype}) "
+            f"prefill on {card}: B={b} S={s} in {sec:.4f} s, "
+            f"{b * s / sec:.1f} tokens/s, peak memory {peak} bytes, "
+            f"launches {launches}")
+        del logits, batch
+
+        toks = api.make_batch(cfg, tgen, DECODE_BATCH, PROMPT,
+                              device="cuda")["tokens"]
+        for fn in kernels.values():
+            fn.launches = 0
+        res = serve(cfg, params, toks, SERVE_DECODE, "cuda")
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        require(all(n == 0 for n in launches.values()),
+                f"{arch} serve: decode launched {launches}")
+        require(not bool(torch.isnan(res["logits"]).any()),
+                f"{arch} serve: NaN logits")
+        require(tuple(res["generated"].shape) ==
+                (DECODE_BATCH, SERVE_DECODE),
+                f"{arch} serve: generated {tuple(res['generated'].shape)}")
+        say(f"{arch} serve on {card}: batch {DECODE_BATCH}, prompt "
+            f"{PROMPT} in {res['prompt_s']:.4f} s, decode "
+            f"{SERVE_DECODE} in {res['decode_s']:.4f} s -> "
+            f"{res['tok_per_s']:.1f} tok/s, no NaN, kernel launches 0")
+        del params, res
+        torch.cuda.empty_cache()
+
+        # f32 at full width: prefill (the kernels) vs teacher-forced decode
+        # (plain torch, no kernel), as tests/test_decode_equivalence.py
+        cfg32, params, tgen = setup(run, "float32")
+        batch = api.make_batch(cfg32, tgen, 2, CHECK_LEN, device="cuda")
+        full = make_prefill_step(cfg32)(params, batch)
+        cache = api.init_cache(cfg32, 2, CHECK_LEN, device="cuda")
+        step = make_serve_step(cfg32)
+        outs = []
+        for i in range(CHECK_LEN):
+            lg, cache = step(params, cache, batch["tokens"][:, i:i + 1], i)
+            outs.append(lg[:, 0])
+        dec = torch.stack(outs, dim=1)
+        tol = DECODE_TOL[cfg.family]
+        e = check_close(f"{arch} f32 prefill vs decode", dec, full, tol, tol)
+        say(f"{arch} f32 at full width ({cfg.n_layers} layers) on {card}: "
+            f"prefill logits vs {CHECK_LEN} teacher-forced decode steps, max "
+            f"abs err {e:.3e} (tol rtol {tol} atol {tol}), max |logit| "
+            f"{float(full.abs().max()):.3f}; {time.perf_counter() - t0:.1f} "
+            f"s for {arch}")
+        del params, batch, full, cache, dec, outs
+        torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -586,7 +876,9 @@ def main() -> int:
     from repro_torch.kernels.rloo import ref
     from repro_torch.kernels.rloo import rloo as K
     from repro_torch.kernels.robust import ref as rref
+    from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.robust import robust as R
+    from repro_torch.kernels.selective_scan import selective_scan as SS
 
     say("== phase 1: device")
     kind = torch.cuda.get_device_name(0)
@@ -599,6 +891,8 @@ def main() -> int:
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
+    phase_s = {}
+    t_phase = time.perf_counter()
     say("== phase 2: build")
     secs = build.build_all()
     for name, log in build.BUILD_LOG.items():
@@ -606,10 +900,16 @@ def main() -> int:
             say(f"[nvcc {name}] {line}")
     say(f"build: {secs:.2f} s -> {build.BUILD_DIR}")
 
+    phase_s["build"] = time.perf_counter() - t_phase
+
+    t_phase = time.perf_counter()
     say("== phase 3: kernels vs plain versions")
     reports = kernel_phase(torch, K, ref)
     reports.update(wire_kernel_phase(torch, K, R, ref, rref, comm))
+    reports.update(lm_kernel_phase(torch, card))
+    phase_s["kernels"] = time.perf_counter() - t_phase
 
+    t_phase = time.perf_counter()
     say("== phase 4: slice")
     world = make_world(torch)
     counts = slice_phase(torch, np, K, card, world)
@@ -620,11 +920,22 @@ def main() -> int:
                    rank_band_mean=R.rank_band_mean)
     for name, n in wire_slice_phase(torch, np, kernels, card, world).items():
         counts.setdefault(name, n)      # the main path's own count first
+    phase_s["fl slice"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    del world
+    torch.cuda.empty_cache()
+    kernels.update(flash_attention=FA.flash_attention,
+                   selective_scan=SS.selective_scan)
+    counts.update(lm_slice_phase(torch, card, kernels))
+    phase_s["lm slice"] = time.perf_counter() - t_phase
 
     say("== phase 5: report")
+    say("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in phase_s.items()))
     kernels = []
     for name in ("rloo_combine", "ncv_weighted_sum", "ncv_weighted_sum_q",
-                 "ncv_weighted_sum_q4", "rank_band_mean"):
+                 "ncv_weighted_sum_q4", "rank_band_mean", "flash_attention",
+                 "selective_scan"):
         r = reports[name]
         kernels.append({**{k: r[k] for k in ("name", "route", "source",
                                              "replaces")},

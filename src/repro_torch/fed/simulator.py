@@ -43,16 +43,8 @@ from repro_torch.fed import api
 from repro_torch.fed import methods as M
 from repro_torch.fed import sampling
 from repro_torch.fed.api import FLConfig  # noqa: F401  (re-export)
+from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree_math import flat_spec, tree_bytes, tree_map
-
-
-def resolve_device(device=None) -> torch.device:
-    """`None` means the CUDA device; a CUDA device without a card raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run on the CPU")
-    return dev
 
 
 def _tensor(x, dtype, device=None):

@@ -27,6 +27,8 @@ LIBRARIES = {
     "rloo": ("rloo/csrc/rloo.cu",),
     "rloo_q": ("rloo/csrc/rloo_q.cu",),
     "robust": ("robust/csrc/robust.cu",),
+    "flash_attention": ("flash_attention/csrc/flash_attention.cu",),
+    "selective_scan": ("selective_scan/csrc/selective_scan.cu",),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

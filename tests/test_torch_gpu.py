@@ -11,8 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch.data import federated_splits
 from repro_torch.fed import FLConfig, Simulator, Task
+from repro_torch.kernels.flash_attention import flash_attention as FA
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.rloo import rloo as K
 from repro_torch.kernels.rloo.ref import (ncv_weighted_sum_q4_ref,
                                           ncv_weighted_sum_q_ref,
@@ -20,7 +23,13 @@ from repro_torch.kernels.rloo.ref import (ncv_weighted_sum_q4_ref,
                                           rloo_combine_ref)
 from repro_torch.kernels.robust import robust as R
 from repro_torch.kernels.robust.ref import rank_band_mean_ref
+from repro_torch.kernels.selective_scan import selective_scan as SS
+from repro_torch.kernels.selective_scan.ops import scan_states
+from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+from repro_torch.launch.train import make_prefill_step
+from repro_torch.models import api as lm_api
 from repro_torch.models import lenet
+from repro_torch.utils.tree_math import tree_map
 
 pytestmark = pytest.mark.gpu
 
@@ -220,3 +229,145 @@ def test_wire_and_robust_rounds_launch_their_kernels(cuda, kw, kernel):
     assert fns[kernel].launches - before == 2
     assert np.isfinite(diags["agg_norm"]).all()
     assert all(bool(torch.isfinite(v).all()) for v in sim.params.values())
+
+
+# ----------------------------- LM slice: flash attention, selective scan ----
+
+def _qkv(seed, b, s, h, kv, hd, dtype):
+    rng = np.random.default_rng(seed)
+    mk = lambda n: torch.from_numpy(  # noqa: E731
+        rng.standard_normal((b, s, n, hd)).astype(np.float32)).to(dtype)
+    return mk(h), mk(kv), mk(kv)
+
+
+# (rtol, atol) f32: the reference kernel tests' 2e-4; bf16: both compute in
+# f32 and round to bf16 once, so they differ by at most one bf16 step, at
+# most 2^-7 of the value
+_FLASH_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (1e-2, 1e-3)}
+
+
+def _flash_case(cuda, seed, b, s, h, kv, hd, dtype, **kw):
+    q, k, v = (t.to(cuda) for t in _qkv(seed, b, s, h, kv, hd, dtype))
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    rtol, atol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    return q, k, v, got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", list(range(8, 257, 8)))
+def test_flash_kernel_matches_plain_every_head_dim(cuda, hd, dtype):
+    _flash_case(cuda, hd, 1, 130, 4, 2, hd, dtype, causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window,softcap", [
+    (2, 256, 4, 2, 128, True, None, None),
+    (1, 1000, 8, 2, 64, True, None, None),       # ragged S
+    (2, 24, 4, 2, 32, True, 16, None),           # the decode-test length
+    (1, 1, 2, 1, 16, True, None, None),
+    (1, 300, 4, 4, 96, False, None, None),       # phi3's hd, not causal
+    (1, 700, 2, 1, 256, True, 200, 50.0),        # gemma2: window + softcap
+    (1, 333, 6, 3, 64, False, 50, 30.0),         # window without causal
+])
+def test_flash_kernel_matches_plain_masks(cuda, b, s, h, kv, hd, causal,
+                                          window, softcap, dtype):
+    q, k, v, got = _flash_case(cuda, s + hd, b, s, h, kv, hd, dtype,
+                               causal=causal, window=window, softcap=softcap)
+    again = FA.flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
+    assert torch.equal(got, again)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v = (t.to(cuda) for t in _qkv(0, 1, 64, 4, 2, 64, torch.float32))
+    with pytest.raises(ValueError, match="hd"):
+        FA.flash_attention(q[..., :12].contiguous(), k[..., :12].contiguous(),
+                           v[..., :12].contiguous())
+    big = torch.zeros(1, 8, 2, 264, device=cuda)
+    with pytest.raises(ValueError, match="hd"):
+        FA.flash_attention(big, big, big)
+    with pytest.raises(TypeError):
+        FA.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        FA.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v)
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, k[:, :, :1].expand(1, 64, 3, 64).contiguous(),
+                           v[:, :, :1].expand(1, 64, 3, 64).contiguous())
+
+
+def _scan_inputs(seed, shape):
+    rng = np.random.default_rng(seed)
+    # a in (0, 1) like exp(dt * A) with A < 0
+    a = 1.0 / (1.0 + np.exp(-rng.standard_normal(shape)))
+    b = rng.standard_normal(shape)
+    return (torch.from_numpy(a.astype(np.float32)),
+            torch.from_numpy(b.astype(np.float32)))
+
+
+@pytest.mark.parametrize("shape", [(128, 64), (256, 256), (512, 100),
+                                   (1024, 32), (3, 1000, 77), (2, 17, 4099),
+                                   (1, 1, 5), (4, 2048, 512)])
+def test_scan_kernel_matches_plain(cuda, shape):
+    a, b = (t.to(cuda) for t in _scan_inputs(sum(shape), shape))
+    before = SS.selective_scan.launches
+    h = SS.selective_scan(a, b)
+    hr = selective_scan_ref(a, b)
+    torch.cuda.synchronize()
+    assert SS.selective_scan.launches == before + 1
+    # sequential FMAs vs the doubling scan: the reference tests' 2e-4
+    torch.testing.assert_close(h, hr, rtol=2e-4, atol=2e-4)
+    assert torch.equal(h, SS.selective_scan(a, b))
+
+
+def test_scan_kernel_takes_bf16_and_broadcast_states(cuda):
+    a, b = (t.to(cuda) for t in _scan_inputs(3, (2, 64, 16, 8)))
+    h = scan_states(a[:, :, :, :1], b.bfloat16())
+    hr = selective_scan_ref(a[:, :, :, :1].expand(b.shape).reshape(2, 64, -1),
+                            b.bfloat16().reshape(2, 64, -1))
+    assert h.dtype == torch.float32 and h.shape == b.shape
+    torch.testing.assert_close(h.reshape(2, 64, -1), hr, rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    a, b = (t.to(cuda) for t in _scan_inputs(0, (64, 32)))
+    with pytest.raises(ValueError, match="contiguous"):
+        SS.selective_scan(a.t().contiguous().t(), b)
+    with pytest.raises(ValueError):
+        SS.selective_scan(a, b.cpu())
+    with pytest.raises(ValueError):
+        SS.selective_scan(a, b[:, :16].contiguous())
+    with pytest.raises(TypeError):
+        SS.selective_scan(a.int(), b)
+
+
+@pytest.mark.parametrize("arch,kernel", [("llama3.2-3b", "flash"),
+                                         ("gemma2-9b", "flash"),
+                                         ("falcon-mamba-7b", "scan")])
+def test_reduced_prefill_launches_its_kernel(cuda, arch, kernel):
+    cfg = configs.get(arch).reduced().replace(dtype="float32")
+    params = lm_api.init_params(cfg, 0, device="cpu")
+    batch = lm_api.make_batch(cfg, torch.Generator().manual_seed(1), 2, 40,
+                              device="cpu")
+    want = make_prefill_step(cfg)(params, batch)
+    fn = dict(flash=FA.flash_attention, scan=SS.selective_scan)[kernel]
+    p_cuda = tree_map(lambda x: x.to(cuda), params)
+    b_cuda = {k: v.to(cuda) for k, v in batch.items()}
+    before = fn.launches
+    got = make_prefill_step(cfg)(p_cuda, b_cuda)
+    torch.cuda.synchronize()
+    assert fn.launches - before == cfg.n_layers
+    # f32 matmuls and sums in other orders on the card
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
