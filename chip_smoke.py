@@ -7,18 +7,24 @@ Phases, in order (each prints its seconds); any failure exits nonzero
 without the final `ok` line:
   1. device  — the card's name, count and power limit; TF32 off for
                matmuls and cuDNN convolutions (LeNet stays f32).
-  2. build   — compiles all five CUDA libraries from
-               `src/repro_torch/kernels` (one `nvcc` each, in parallel).
+  2. build   — compiles all six CUDA libraries from
+               `src/repro_torch/kernels` (one `nvcc` each, in parallel); the
+               bf16 flash kernel's registers and spill bytes (ptxas -v: none
+               may spill) and its tensor-core instructions in the SASS
+               (cuobjdump: HGMMA).
   3. kernels — each kernel against its plain PyTorch version on the card at
                the main path's shapes and at other cohort sizes and ragged
                widths (ties and dead rows for `rank_band_mean`); the flash
-               kernel at the llama3.2-3b and gemma2-9b prefill shapes (bf16),
-               the reference's sweep (f32) and ragged S; the scan at
-               falcon-mamba-7b's (1, 2048, 131072), the reference's sweep, a
-               batch axis and ragged S.  Then device times (CUDA-graph
-               replay, inputs rotated through more than the 50 MB L2) of the
-               kernel, the plain version and, where one exists, a single
-               PyTorch call computing the same function.
+               kernel at the llama3.2-3b and gemma2-9b prefill shapes (bf16
+               and f32), the reference's sweep (f32), ragged S, and the bf16
+               tensor-core kernel's head widths, GQA ratios, masks, short
+               and ragged S and batch edges; the scan at falcon-mamba-7b's
+               (1, 2048, 131072), the reference's sweep, a batch axis and
+               ragged S.  Then device times (CUDA-graph replay, inputs
+               rotated through more than the 50 MB L2) of the kernel, the
+               plain version and, where one exists, a single PyTorch call
+               computing the same function; the bf16 flash kernel must reach
+               a quarter of its bound at the llama3.2-3b shape.
   4. slice   — the paper's experiment through the port's entry points:
                Dirichlet(0.1) cifar10 split, 40 clients, LeNet-5 (N = 62,006),
                FedNCV (beta = 0, and beta = 1 "fedncv-lit"), cohort 10, K = 4,
@@ -33,7 +39,11 @@ without the final `ok` line:
                B 1 x S 2048, gemma2-9b cut to 2 layers (one local/global
                pair) B 1 x S 8192; after each prefill the serve loop (batch
                8, prompt 32, decode 64); then each model in f32, prefill
-               logits against 64 teacher-forced decode steps.
+               logits against 64 teacher-forced decode steps.  Last, bf16
+               llama3.2-3b logits at full width (2 layers, B 1 x S 4096)
+               through the flash kernel against the same model with its
+               attention taken by the plain version, each layer's
+               attention held to the plain version, and an f32 control.
   5. report  — one JSON line per kernel list, the card's name and power
                limit, then `{"ok": true, "device": {...}}` as the last line.
 
@@ -43,6 +53,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -643,6 +654,20 @@ FLASH_CASES = (
     ("sweep 6", 1, 512, 8, 8, 32, "float32", True, 64, 50.0),
     ("ragged", 1, 1000, 8, 2, 64, "float32", True, 300, None),
     ("ragged bf16", 2, 1000, 8, 2, 128, "bfloat16", True, None, None),
+    # the bf16 tensor-core kernel: every head width it pads (8 and 96 to a
+    # 64-column panel; 192, 256 on 64-key tiles), GQA r = 1..4, S below
+    # one tile and ragged, B > 1 across the batch edge of its tensor maps,
+    # and each mask
+    ("bf16 S=1 r=4", 1, 1, 4, 1, 128, "bfloat16", True, None, None),
+    ("bf16 S=24 hd 8", 2, 24, 6, 2, 8, "bfloat16", True, None, None),
+    ("bf16 hd 64 r=3", 3, 130, 6, 2, 64, "bfloat16", True, None, None),
+    ("bf16 hd 96 r=1", 2, 300, 4, 4, 96, "bfloat16", False, None, None),
+    ("bf16 hd 192", 2, 257, 4, 2, 192, "bfloat16", True, None, None),
+    ("bf16 hd 256 r=4", 2, 1000, 8, 2, 256, "bfloat16", False, None, None),
+    ("bf16 window", 2, 777, 4, 2, 128, "bfloat16", True, 100, None),
+    ("bf16 softcap", 2, 300, 4, 1, 64, "bfloat16", False, None, 30.0),
+    ("bf16 window softcap", 2, 700, 4, 2, 256, "bfloat16", True, 200,
+     50.0),
 )
 # the scan's shapes (B, S, C): falcon-mamba-7b's prefill (C = d_inner * N =
 # 8,192 * 16), the reference's sweep, a batch axis and ragged lengths
@@ -727,12 +752,17 @@ def lm_kernel_phase(torch, card):
             f"{library_ms:.5f} (scaled_dot_product_attention)"
         say(f"flash_attention {label} on {card}, {moved} bytes, {ops} flops: "
             f"kernel_ms={ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}) "
-            f"plain_ms={plain_ms:.5f} library_ms={lib}")
+            f"plain_ms={plain_ms:.5f} library_ms={lib}; "
+            f"{ops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the bound")
+        if label == "llama3.2-3b":
+            require(ms <= 4 * bound_ms,
+                    f"flash bf16 at {label}: {ms:.5f} ms, below a quarter "
+                    f"of its bound ({bound_ms:.5f} ms)")
         del ins
     reports["flash_attention"] = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/flash_attention/csrc/"
-               "flash_attention.cu",
+               "flash_attention_bf16.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:70",
         max_abs_err=max(errs), **timed["llama3.2-3b"])
 
@@ -865,6 +895,146 @@ def lm_slice_phase(torch, card, kernels):
     return counts
 
 
+def flash_bf16_build_check(build):
+    """The bf16 flash kernel's build: each template's registers and spill
+    bytes from ptxas -v (none may spill, and no setmaxnreg may be dropped),
+    and its tensor-core instructions (HGMMA) in the SASS."""
+    name = "flash_attention_bf16"
+    if name not in build.BUILD_LOG:      # built before this run: build anew
+        build.library_path(name).unlink()
+        build.build_all((name,))
+    log = build.BUILD_LOG[name]
+    require("setmaxnreg ignored" not in log,
+            "ptxas ignored setmaxnreg in the bf16 flash kernel")
+    found, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry:
+            found.setdefault(entry, {})["spill"] = int(m[1]) + int(m[2])
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            found.setdefault(entry, {})["regs"] = int(m[1])
+    kernels = {k: v for k, v in found.items() if "flash_bf16_kernel" in k}
+    require(len(kernels) == 4, f"ptxas reported {len(kernels)} bf16 flash "
+                               f"kernels, want 4")
+    for entry, v in sorted(kernels.items()):
+        hdp, bk = re.search(r"flash_bf16_kernelILi(\d+)ELi(\d+)E",
+                            entry).groups()
+        say(f"flash bf16 kernel HDP={hdp} BK={bk}: {v['regs']} registers a "
+            f"thread at launch (setmaxnreg: producer 24, consumers 240), "
+            f"{v['spill']} spill bytes")
+        require(v["spill"] == 0, f"bf16 flash kernel HDP={hdp} BK={bk} "
+                                 f"spills {v['spill']} bytes")
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    n_hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    require(n_hgmma > 0, "no HGMMA in the bf16 flash kernel's SASS")
+    say(f"flash bf16 kernels: {n_hgmma} HGMMA (tensor-core) instructions in "
+        f"the SASS (cuobjdump -sass)")
+
+
+# bf16 llama3.2-3b logits at full width.  Each layer's attention through
+# the kernel is held to the plain version on the same q, k, v at the
+# kernel's own bf16 tolerance.  The logits cannot be held that tightly by
+# any attention: the two bf16 layers cascade every flipped rounding of
+# the attention output (one step, in well under 1% of its elements) into
+# about 6e-3 relative rms of the logits, whether the flips come from the
+# kernel or from an f32-exact attention in another summation order.  So
+# the logits are held against a control, the f32 kernel on f32 copies of
+# q, k, v rounded to bf16 once: the kernel may move them (relative rms
+# from the plain attention's) by at most twice what the control does, or
+# 2^-8 (one bf16 rounding) if that is larger.  The cascade saturates (it
+# flips most logits either way), so a kernel within its contract stays
+# near the control; a fault (a wrong head, mask or tile) moves the logits
+# by O(1).
+BF16_LOGIT_VS_CONTROL, BF16_LOGIT_REL_RMS = 2.0, 2 ** -8
+
+
+def lm_bf16_check(torch, card, fa):
+    """llama3.2-3b prefill logits in bf16 at full width, cut to 2 layers,
+    B 1 x S 4096: attention by the kernel, by the plain version, and by
+    the f32 control, over the same weights and tokens."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.launch.profile_lm import Run, setup
+    from repro_torch.launch.train import make_prefill_step
+    from repro_torch.models import api
+    from repro_torch.models import layers
+
+    run = Run("llama3.2-3b", 2, 1, 4096, "flash_attention", 2)
+    cfg, params, tgen = setup(run)
+    batch = api.make_batch(cfg, tgen, run.batch, run.seq, device="cuda")
+    prefill = make_prefill_step(cfg)
+    kernel = layers.flash_attention
+    rtol, atol = FLASH_TOL["bfloat16"]
+    layer_errs = []
+    differ = {"kernel": [], "f32 control": []}   # share of outputs, by layer
+
+    def checked(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        ref = flash_attention_ref(q, k, v, **kw)
+        layer_errs.append(check_close(
+            "bf16 llama3.2-3b layer attention, kernel vs plain", out.float(),
+            ref.float(), rtol, atol))
+        differ["kernel"].append(float((out != ref).float().mean()))
+        return out
+
+    def f32_control(q, k, v, **kw):
+        out = kernel(q.float(), k.float(), v.float(), **kw).to(q.dtype)
+        ref = flash_attention_ref(q, k, v, **kw)
+        differ["f32 control"].append(float((out != ref).float().mean()))
+        return out
+
+    def logits_with(attention):
+        layers.flash_attention = attention
+        try:
+            out = prefill(params, batch)
+        finally:
+            layers.flash_attention = kernel
+        torch.cuda.synchronize()
+        return out
+
+    fa.launches = 0
+    got = logits_with(checked)
+    require(fa.launches == run.launches,
+            f"bf16 llama check: {fa.launches} flash launches, want "
+            f"{run.launches}")
+    want = logits_with(flash_attention_ref)
+    control = logits_with(f32_control)
+    norm = float(want.norm())
+    stats = {}
+    for name, x in (("kernel", got), ("f32 control", control)):
+        stats[name] = (float((x - want).norm()) / norm,
+                       float((x - want).abs().max()),
+                       float((x != want).float().mean()))
+    tol = max(BF16_LOGIT_VS_CONTROL * stats["f32 control"][0],
+              BF16_LOGIT_REL_RMS)
+    say(f"llama3.2-3b bf16 at full width ({cfg.n_layers} layers, B "
+        f"{run.batch} x S {run.seq}) on {card}: layer attention, kernel vs "
+        f"plain, max abs err {max(layer_errs):.3e} (tol rtol {rtol} atol "
+        f"{atol}); share of layer outputs differing from the plain "
+        f"version's " + ", ".join(f"{name} {[round(d, 5) for d in ds]}"
+                                 for name, ds in differ.items()) +
+        f"; logits vs the plain attention's (max |logit| "
+        f"{float(want.abs().max()):.3f}): " + "; ".join(
+            f"{name} relative rms {r:.3e}, max abs {m:.3e}, share differing "
+            f"{d:.5f}" for name, (r, m, d) in stats.items()) +
+        f" (tol for the kernel: relative rms {tol:.3e})")
+    require(stats["kernel"][0] <= tol,
+            f"bf16 llama3.2-3b logits: relative rms difference "
+            f"{stats['kernel'][0]:.3e} from the plain attention's, above "
+            f"{tol:.3e}")
+    del params, batch, got, want, control
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -899,6 +1069,7 @@ def main() -> int:
         for line in log.strip().splitlines():
             say(f"[nvcc {name}] {line}")
     say(f"build: {secs:.2f} s -> {build.BUILD_DIR}")
+    flash_bf16_build_check(build)
 
     phase_s["build"] = time.perf_counter() - t_phase
 
@@ -927,6 +1098,7 @@ def main() -> int:
     kernels.update(flash_attention=FA.flash_attention,
                    selective_scan=SS.selective_scan)
     counts.update(lm_slice_phase(torch, card, kernels))
+    lm_bf16_check(torch, card, FA.flash_attention)
     phase_s["lm slice"] = time.perf_counter() - t_phase
 
     say("== phase 5: report")

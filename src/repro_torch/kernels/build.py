@@ -22,12 +22,16 @@ BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# library name -> its sources, relative to repro_torch/kernels/
+# library name -> its sources and the headers they include, relative to
+# repro_torch/kernels/ (all of them go into the library's hash; the `.cu`
+# files go to nvcc)
 LIBRARIES = {
     "rloo": ("rloo/csrc/rloo.cu",),
     "rloo_q": ("rloo/csrc/rloo_q.cu",),
     "robust": ("robust/csrc/robust.cu",),
     "flash_attention": ("flash_attention/csrc/flash_attention.cu",),
+    "flash_attention_bf16": ("flash_attention/csrc/flash_attention_bf16.cu",
+                             "flash_attention/csrc/wgmma.cuh"),
     "selective_scan": ("selective_scan/csrc/selective_scan.cu",),
 }
 
@@ -70,7 +74,8 @@ def build_all(names=None) -> float:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-               *(str(KERNELS_DIR / s) for s in LIBRARIES[name])]
+               *(str(KERNELS_DIR / s) for s in LIBRARIES[name]
+                 if s.endswith(".cu"))]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

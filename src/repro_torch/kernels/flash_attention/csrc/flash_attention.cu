@@ -1,11 +1,11 @@
-// Online-softmax (flash) attention forward for Hopper (sm_90a), plain C
-// interface.
+// Online-softmax (flash) attention forward in f32 on the CUDA cores of
+// Hopper (sm_90a), plain C interface.
 //
-// flash_attention_fwd replaces the TPU kernel
+// flash_attention_fwd replaces, for f32 inputs, the TPU kernel
 //   src/repro/kernels/flash_attention/flash_attention.py::flash_attention
 //   (_flash_kernel):
-// q (B, S, H, hd), k/v (B, S, KV, hd), H = r * KV, f32 or bf16, contiguous
-// -> o (B, S, H, hd) in q's dtype, with, for query row qi and key kj,
+// q (B, S, H, hd), k/v (B, S, KV, hd), H = r * KV, f32, contiguous
+// -> o (B, S, H, hd) f32, with, for query row qi and key kj,
 //   s = (q * 1/sqrt(hd)) . k              f32
 //   s = c * tanh(s / c)                   softcap c, if given
 //   s = -1e30 where masked                causal kj <= qi; window qi - kj < w
@@ -35,8 +35,8 @@
 // row of the block are skipped: each row keeps its diagonal key, so a
 // skipped tile would only have added exp(-1e30 - m) = 0.  Tiles of 32 keys
 // for hd > 64 keep the hd = 256 variant within 142 KB of shared memory.
-// No float atomics: the same result from run to run.
-#include <cuda_bf16.h>
+// No float atomics: the same result from run to run.  (bf16 inputs take
+// the tensor-core kernel of flash_attention_bf16.cu.)
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -47,13 +47,7 @@ constexpr int kBQ = 64;            // query rows per block
 constexpr float kMasked = -1e30f;  // the reference's masked logit
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // Shared-memory layout, in floats.  Every offset is a multiple of 4, so
 // the float4 reads below are aligned.
@@ -308,24 +302,18 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
 extern "C" {
 
 // Returns a CUDA error code (0 on success), or -1 for arguments the kernel
-// does not take.  dtype: 0 = f32, 1 = bf16.  hd: a multiple of 8 in
-// [8, 256].  window <= 0: no window.  softcap <= 0: no softcap.  scale:
-// the f32 value of 1/sqrt(hd) (the caller rounds it as the reference does).
+// does not take.  hd: a multiple of 8 in [8, 256].  window <= 0: no
+// window.  softcap <= 0: no softcap.  scale: the f32 value of 1/sqrt(hd)
+// (the caller rounds it as the reference does).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int b, int s, int h, int kvh, int hd, int causal,
-                        int window, float softcap, float scale, int dtype,
+                        int window, float softcap, float scale,
                         void* stream) {
   if (b < 1 || s < 1 || h < 1 || kvh < 1 || h % kvh != 0 || hd < 8 ||
       hd > 256 || hd % 8 != 0 || b > 65535 || h > 65535)
     return -1;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, o, b, s, h, kvh, hd, causal, window,
-                           softcap, scale, st);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, b, s, h, kvh, hd, causal,
-                                   window, softcap, scale, st);
-  return -1;
+  return dispatch<float>(q, k, v, o, b, s, h, kvh, hd, causal, window,
+                         softcap, scale, (cudaStream_t)stream);
 }
 
 }  // extern "C"

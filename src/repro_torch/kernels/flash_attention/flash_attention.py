@@ -1,10 +1,15 @@
-"""Wrapper of the flash attention CUDA kernel (`csrc/flash_attention.cu`).
+"""Wrapper of the flash attention CUDA kernels: f32 on the CUDA cores
+(`csrc/flash_attention.cu`), bf16 on the tensor cores
+(`csrc/flash_attention_bf16.cu`: wgmma, TMA).
 
 `flash_attention` — the online-softmax attention forward of
 `src/repro/kernels/flash_attention/flash_attention.py`: GQA (query head h
 reads KV head h // (H / KV)), causal, sliding window (qi - kj < window) and
-logit softcap c * tanh(s / c), f32 math, output in q's dtype.  Any S; hd a
-multiple of 8 up to 256; f32 or bf16.  It also stands for the reference's
+logit softcap c * tanh(s / c), f32 softmax, output in q's dtype.  Any S; hd
+a multiple of 8 up to 256; f32 or bf16.  The bf16 kernel takes QK^T and P.V
+from bf16 operands into f32 accumulators, with P split into two bf16
+halves (hi + lo), so it stays within one bf16 step of the plain version's
+f32 P.  It also stands for the reference's
 `ops.attention`: that entry pads hd to a multiple of 128 for the TPU's
 matrix unit, which this kernel does not need, so it takes hd as it is and
 keeps the 1/sqrt(hd) temperature.
@@ -24,19 +29,23 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _FNS: dict = {}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype -> (library, C entry); both entries take the same arguments
+_ENTRIES = {torch.float32: ("flash_attention", "flash_attention_fwd"),
+            torch.bfloat16: ("flash_attention_bf16",
+                             "flash_attention_bf16_fwd")}
 
 
-def _lib():
-    if not _FNS:
-        lib = build.load("flash_attention")
+def _fn(dtype):
+    """The C entry of the kernel for `dtype`, its library built and loaded
+    at first use."""
+    if dtype not in _FNS:
+        lib_name, entry = _ENTRIES[dtype]
+        f = getattr(build.load(lib_name), entry)
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        f = lib.flash_attention_fwd
-        f.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, cf, ci,
-                      vp]
+        f.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, cf, vp]
         f.restype = ci
-        _FNS.update(fwd=f)
-    return _FNS
+        _FNS[dtype] = f
+    return _FNS[dtype]
 
 
 def _check_args(q, k, v, window, softcap):
@@ -80,7 +89,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
             raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in _DTYPES:
+    if q.dtype not in _ENTRIES:
         raise TypeError(f"the flash kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
     if not (8 <= hd <= 256 and hd % 8 == 0):
@@ -89,18 +98,28 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
     if not (b <= 65535 and h <= 65535):
         raise ValueError(f"shape {tuple(q.shape)} is out of the kernel's "
                          f"range")
-    fns = _lib()
+    if q.dtype == torch.bfloat16:
+        # the tensor maps take 16-byte-aligned bases; work items of 128 rows
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must start on a 16-byte boundary")
+        if -(-s // 128) * h * b > 2 ** 30:
+            raise ValueError(f"shape {tuple(q.shape)} is out of the kernel's "
+                             f"range")
+    fn = _fn(q.dtype)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fns["fwd"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), b, s, h, kv, hd, int(bool(causal)),
-                        0 if window is None else int(window),
-                        0.0 if softcap is None else float(softcap),
-                        1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                s, h, kv, hd, int(bool(causal)),
+                0 if window is None else int(window),
+                0.0 if softcap is None else float(softcap),
+                1.0 / math.sqrt(hd), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: "
-                           f"cudaGetLastError() = {rc}")
+        why = {-2: "the CUDA driver has no cuTensorMapEncodeTiled",
+               -3: "a tensor map could not be made"}.get(
+                   rc, f"cudaGetLastError() = {rc}")
+        raise RuntimeError(f"flash_attention launch failed: {why}")
     flash_attention.launches += 1
     return out
 

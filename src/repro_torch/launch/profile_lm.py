@@ -68,7 +68,7 @@ def setup(run: Run, dtype: str | None = None):
 
 
 def kernel_class(name: str) -> str:
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_kernel" in name or "flash_bf16_kernel" in name:
         return "flash_attention"
     if "scan_kernel" in name:
         return "selective_scan"

@@ -165,6 +165,44 @@ def test_attention_block_matches_reference(window, softcap):
     _close(got, want, TOL)
 
 
+# The reference's attention_block takes `attend` below
+# _BLOCKED_ATTN_THRESHOLD (2,048 tokens), which rounds the softmax
+# probabilities to bf16 before P.V, and `blocked_attention` from 2,048 on,
+# which keeps them in f32 as the port's flash path does at every length.
+S_BLOCKED = JL._BLOCKED_ATTN_THRESHOLD
+SPEC_SMALL = JL.AttnParamsSpec(d_model=32, n_heads=2, n_kv_heads=1,
+                               head_dim=16)
+T_SPEC_SMALL = TL.AttnParamsSpec(32, 2, 1, 16)
+
+
+@pytest.mark.parametrize("window", [None, 256])
+def test_bf16_attention_block_matches_reference_blocked_path(window):
+    """bf16 at S = 2,048, where both keep P in f32: one bf16 step.
+
+    rtol 2^-7: one bf16 rounding of y = a @ wo apart (2^-8 relative on
+    each side).  atol 2^-8: a y that cancels towards 0 still carries the
+    one-step (2^-8) differences of the attention output a in its 32 terms,
+    2^-8 * sum_i |a_i w_ij|, which is 1.8e-3 at the median element here;
+    2^-8 covers sums up to 1."""
+    p = _attn_params(11, SPEC_SMALL)
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((1, S_BLOCKED, 32)).astype(np.float32)
+    pos = np.arange(S_BLOCKED, dtype=np.int32)[None]
+    kw = dict(causal=True, window=window, softcap=None, rope_theta=5e5)
+    block = jax.jit(lambda p_, x_, pos_: JL.attention_block(
+        p_, x_, pos_, SPEC_SMALL, **kw))
+    want = block({n: jnp.asarray(a, jnp.bfloat16) for n, a in p.items()},
+                 jnp.asarray(x, jnp.bfloat16), jnp.asarray(pos))
+    got = TL.attention_block(
+        {n: torch.from_numpy(a).bfloat16() for n, a in p.items()},
+        torch.from_numpy(x).bfloat16(), torch.from_numpy(pos), T_SPEC_SMALL,
+        **kw)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=2 ** -7,
+                               atol=2 ** -8)
+
+
 def test_attention_block_refuses_what_is_not_ported():
     p = {n: torch.from_numpy(a) for n, a in _attn_params(1, SPEC).items()}
     x = torch.zeros(1, 4, 64)

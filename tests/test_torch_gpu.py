@@ -257,6 +257,8 @@ def _flash_case(cuda, seed, b, s, h, kv, hd, dtype, **kw):
     rtol, atol = _FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
+    # no float atomics, no split over keys: bitwise the same on a repeat
+    assert torch.equal(got, FA.flash_attention(q, k, v, **kw))
     return q, k, v, got
 
 
@@ -278,11 +280,40 @@ def test_flash_kernel_matches_plain_every_head_dim(cuda, hd, dtype):
 ])
 def test_flash_kernel_matches_plain_masks(cuda, b, s, h, kv, hd, causal,
                                           window, softcap, dtype):
-    q, k, v, got = _flash_case(cuda, s + hd, b, s, h, kv, hd, dtype,
-                               causal=causal, window=window, softcap=softcap)
-    again = FA.flash_attention(q, k, v, causal=causal, window=window,
-                               softcap=softcap)
-    assert torch.equal(got, again)
+    _flash_case(cuda, s + hd, b, s, h, kv, hd, dtype, causal=causal,
+                window=window, softcap=softcap)
+
+
+# the bf16 tensor-core kernel (wgmma, TMA maps over (hd, heads, S, B)):
+# GQA r = 1..4, tiles of 128 query rows and 64 or 128 keys crossed by S
+# below one tile, ragged S and B > 1 (the batch edge of the maps), every
+# padded head width (hd 8 and 96 zero-filled to a 64-column panel, 192 and
+# 256 on 64-key tiles), and each mask
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window,softcap", [
+    (1, 1, 4, 1, 128, True, None, None),         # S = 1, r = 4
+    (2, 24, 6, 2, 64, True, None, None),         # S below a tile, r = 3
+    (3, 130, 4, 4, 96, True, None, None),        # r = 1, phi3's hd, B = 3
+    (2, 1000, 8, 4, 128, True, None, None),      # ragged S, r = 2
+    (2, 1000, 8, 2, 256, False, None, None),     # not causal, hd 256, r = 4
+    (1, 257, 4, 2, 192, True, None, None),       # hd 192 (64-key tiles)
+    (2, 777, 4, 2, 128, True, 100, None),        # window
+    (2, 300, 4, 1, 64, False, None, 30.0),       # softcap, not causal
+    (2, 700, 4, 2, 256, True, 200, 50.0),        # gemma2: window + softcap
+    (1, 333, 6, 3, 8, False, 50, 30.0),          # window without causal
+    (1, 2048, 8, 8, 128, True, 512, None),       # window over many tiles
+])
+def test_flash_bf16_kernel_cases(cuda, b, s, h, kv, hd, causal, window,
+                                 softcap):
+    _flash_case(cuda, 3 * s + hd, b, s, h, kv, hd, torch.bfloat16,
+                causal=causal, window=window, softcap=softcap)
+
+
+def test_flash_bf16_wrapper_rejects_unaligned_tensors(cuda):
+    q, k, v = (t.to(cuda) for t in _qkv(0, 1, 64, 4, 2, 64, torch.bfloat16))
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:].view(q.shape)      # contiguous, 2 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        FA.flash_attention(shifted, k, v)
 
 
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -6,7 +6,8 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+    sorted((ROOT / "benchmarks" / "port").rglob("*.py"))
 
 
 def _imported_roots(path):

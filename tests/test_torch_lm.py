@@ -136,9 +136,19 @@ def test_decode_matches_forward(arch):
 
 
 def test_bf16_llama_matches_reference():
-    """bf16 weights: the port keeps P in f32 through P.V where the
-    reference rounds it to bf16, and the frameworks round bf16 at other
-    places, so the logits agree to bf16 precision only."""
+    """bf16 weights: the logits agree to bf16 precision only, at 2e-2.
+
+    The port sends every length through the flash path, which keeps the
+    softmax probabilities P in f32 (its plain version here, its kernel on
+    the card to within one bf16 step).  The reference has two regimes:
+    below 2,048 tokens its attention_block takes `attend`, which rounds P
+    to bf16 before P.V; from 2,048 on it takes `blocked_attention`, which
+    keeps P in f32.  At this short S the reference rounds P, so the two
+    differ by the reference's own rounding of P (up to 2^-8 of
+    sum_j p_j |v_j - o| per output), carried through the layers, plus the
+    frameworks' other bf16 roundings.  Where both keep P in f32 (S =
+    2,048), tests/test_torch_attention.py holds the block to one bf16
+    step."""
     jcfg = jconfigs.get("llama3.2-3b").reduced()
     cfg = configs.get("llama3.2-3b").reduced()
     assert cfg.dtype == "bfloat16"
