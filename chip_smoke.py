@@ -11,10 +11,15 @@ without the final `ok` line:
                `src/repro_torch/kernels` (one `nvcc` each, in parallel); the
                bf16 flash kernel's registers and spill bytes (ptxas -v: none
                may spill) and its tensor-core instructions in the SASS
-               (cuobjdump: HGMMA).
+               (cuobjdump: HGMMA); the same spill check for the one-launch
+               reductions (`ncv_weighted_sum`, `rank_band_mean`).
   3. kernels — each kernel against its plain PyTorch version on the card at
                the main path's shapes and at other cohort sizes and ragged
-               widths (ties and dead rows for `rank_band_mean`); the flash
+               widths (ties and dead rows for `rank_band_mean`, whose band
+               must also equal the row-order emulation bitwise, up to
+               M = 2,000; lo and hi as values and as device tensors alike);
+               the one-launch reductions bitwise equal over CUDA-graph
+               replays and on two streams at once; the flash
                kernel at the llama3.2-3b and gemma2-9b prefill shapes (bf16
                and f32), the reference's sweep (f32), ragged S, and the bf16
                tensor-core kernel's head widths, GQA ratios, masks, short
@@ -24,7 +29,13 @@ without the final `ok` line:
                rotated through more than the 50 MB L2) of the kernel, the
                plain version and, where one exists, a single PyTorch call
                computing the same function; the bf16 flash kernel must reach
-               a quarter of its bound at the llama3.2-3b shape.
+               a quarter of its bound at the llama3.2-3b shape.  Beside
+               them, a launch floor (a 1-element `add_` timed the same
+               way), and `ncv_weighted_sum` (with `w @ g`) and
+               `rank_band_mean` at (10, 16,777,216), where bytes dominate;
+               `rank_band_mean` also at M = 256 and 2,000, where its
+               pairwise comparisons take the time (their rate is printed
+               beside the bound, which counts a sort's comparisons).
   4. slice   — the paper's experiment through the port's entry points:
                Dirichlet(0.1) cifar10 split, 40 clients, LeNet-5 (N = 62,006),
                FedNCV (beta = 0, and beta = 1 "fedncv-lit"), cohort 10, K = 4,
@@ -114,10 +125,39 @@ def n_rotating(bytes_in: int) -> int:
     return max(2, math.ceil(128e6 / bytes_in))
 
 
+def launch_floor_ms(torch):
+    """Device ms of the smallest graph node: a 1-element `add_`, timed as
+    the kernels are."""
+    x = torch.zeros(1, device="cuda")
+    return graph_ms(torch, lambda i: x.add_(1.0), 64)
+
+
+def replay_check(name, call, inputs, replays=20):
+    """`reduction.check_replays`: bitwise over graph replays and streams."""
+    from repro_torch.kernels import reduction
+    reduction.check_replays(call, inputs, replays)
+    say(f"{name}: bitwise equal over {replays} graph replays and "
+        f"{replays} x {len(inputs)} calls on {len(inputs)} streams at once")
+
+
 def require(cond, msg):
     """A check that also runs under `python -O`."""
     if not cond:
         raise AssertionError(msg)
+
+
+def bound_of(moved_bytes, ops):
+    return max((moved_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+               (ops / F32_OPS_PER_S * 1e3, "operations"))
+
+
+def rank_band_ops(m, n):
+    """Operations `rank_band_mean` needs on an (M, N) stack, whatever the
+    algorithm: a sort of each coordinate's M values (M ceil(log2 M)
+    comparisons), the band's test and sum per row, the mean and the norm
+    per coordinate.  The kernel's pairwise ranks do 4 M^2 a coordinate;
+    that is its own work, not the function's, so it sets no bound."""
+    return n * (m * math.ceil(math.log2(m)) + 2 * m + 3)
 
 
 def check_close(name, got, want, rtol, atol):
@@ -130,7 +170,7 @@ def check_close(name, got, want, rtol, atol):
     return float(err.max()) if err.numel() else 0.0
 
 
-def kernel_phase(torch, K, ref):
+def kernel_phase(torch, K, ref, floor_ms):
     """Kernels against their plain versions; returns per-kernel reports."""
     gen = torch.Generator().manual_seed(0)
     rnd = lambda *s: torch.randn(*s, generator=gen).cuda()
@@ -176,7 +216,10 @@ def kernel_phase(torch, K, ref):
 
     # -- ncv_weighted_sum: g (M, N), w (M,) ----------------------------------
     errs = []
-    for m, n in ((10, 62006), (2, 62006), (7, 1000), (1, 300)):
+    # the slice's shape, N = 1, 3 and 0 (mod 4) (float, float, float4
+    # loads), more rows than one batch of loads in flight, 671 MB
+    for m, n in ((10, 62006), (2, 62006), (7, 1000), (1, 300), (3, 4097),
+                 (5, 1003), (40, 4096), (10, 16777216)):
         g = rnd(m, n)
         w = torch.rand(m, generator=gen).cuda()
         agg, nrm = K.ncv_weighted_sum(g, w)
@@ -190,27 +233,36 @@ def kernel_phase(torch, K, ref):
         errs.append(e)
         say(f"ncv_weighted_sum M={m} N={n}: max abs err {e:.3e} "
             f"(tol rtol 1e-5 atol 1e-5; norm rtol 1e-4) deterministic")
-    m, n = 10, 62006
-    bytes_in = 4 * (m * n + m)
-    gs = [rnd(m, n) for _ in range(n_rotating(bytes_in))]
-    w = torch.rand(m, generator=gen).cuda()
-    ms = graph_ms(torch, lambda i: K.ncv_weighted_sum(gs[i], w), len(gs))
-    plain_ms = graph_ms(torch, lambda i: ref.ncv_weighted_sum_ref(gs[i], w),
-                        len(gs))
-    library_ms = graph_ms(torch, lambda i: w @ gs[i], len(gs))
-    moved = bytes_in + 4 * (n + 1)
-    ops = 2 * m * n + 2 * n
-    bound_ms, bound_by = max((moved / HBM_BYTES_PER_S * 1e3, "bytes"),
-                             (ops / F32_OPS_PER_S * 1e3, "operations"))
-    reports["ncv_weighted_sum"] = dict(
-        name="ncv_weighted_sum", route="cuda",
-        source="src/repro_torch/kernels/rloo/csrc/rloo.cu",
-        replaces="src/repro/kernels/rloo/rloo.py:162",
-        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms)
-    say(f"ncv_weighted_sum (M,N)=({m},{n}): kernel_ms={ms:.5f} "
-        f"bound_ms={bound_ms:.5f} ({bound_by}) plain_ms={plain_ms:.5f} "
-        f"library_ms={library_ms:.5f} (w @ g)")
+    w10 = torch.rand(10, generator=gen).cuda()
+    replay_check("ncv_weighted_sum",
+                 lambda g: K.ncv_weighted_sum(g, w10),
+                 [rnd(10, 62006), rnd(10, 62006)])
+    cuda_gen = torch.Generator(device="cuda").manual_seed(0)
+    for m, n in ((10, 62006), (10, 16777216)):
+        bytes_in = 4 * (m * n + m)
+        gs = [torch.randn(m, n, device="cuda", generator=cuda_gen)
+              for _ in range(n_rotating(bytes_in))]
+        w = torch.rand(m, generator=gen).cuda()
+        ms = graph_ms(torch, lambda i: K.ncv_weighted_sum(gs[i], w), len(gs))
+        library_ms = graph_ms(torch, lambda i: w @ gs[i], len(gs))
+        moved = bytes_in + 4 * (n + 1)
+        bound_ms, bound_by = bound_of(moved, 2 * m * n + 2 * n)
+        say(f"ncv_weighted_sum (M,N)=({m},{n}), {moved} bytes: "
+            f"kernel_ms={ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}) "
+            f"share of bound {bound_ms / ms:.3f}; library_ms={library_ms:.5f} "
+            f"(w @ g, share {bound_ms / library_ms:.3f}); launch floor "
+            f"{floor_ms:.5f}")
+        if n == 62006:
+            plain_ms = graph_ms(torch, lambda i: ref.ncv_weighted_sum_ref(
+                gs[i], w), len(gs))
+            reports["ncv_weighted_sum"] = dict(
+                name="ncv_weighted_sum", route="cuda",
+                source="src/repro_torch/kernels/rloo/csrc/rloo.cu",
+                replaces="src/repro/kernels/rloo/rloo.py:162",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+            say(f"ncv_weighted_sum (M,N)=({m},{n}): plain_ms={plain_ms:.5f}")
+        del gs
     return reports
 
 
@@ -221,15 +273,11 @@ def check_scaled(name, got, want):
     return float((got - want).abs().max()) if got.numel() else 0.0
 
 
-def bound_of(moved_bytes, ops):
-    return max((moved_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-               (ops / F32_OPS_PER_S * 1e3, "operations"))
-
-
-def wire_kernel_phase(torch, K, R, ref, rref, comm):
+def wire_kernel_phase(torch, K, R, ref, rref, comm, floor_ms):
     """The compressed-wire and robust kernels against their plain versions;
     returns per-kernel reports."""
     gen = torch.Generator().manual_seed(1)
+    cuda_gen = torch.Generator(device="cuda").manual_seed(1)
     reports = {}
 
     def wire(name, m, n, chunk=512):
@@ -301,7 +349,8 @@ def wire_kernel_phase(torch, K, R, ref, rref, comm):
     for m, n, ties, dead in ((10, 62006, False, ()), (10, 62006, True, (3,)),
                              (12, 62006, True, (0, 5)), (2, 62006, True, ()),
                              (256, 62006, True, (1, 100, 255)),
-                             (33, 4099, True, (7, 8))):
+                             (33, 4099, True, (7, 8)),
+                             (2000, 777, True, (0, 999, 1999))):
         g = stack(m, n, ties)
         alive = torch.ones(m)
         alive[list(dead)] = 0.0
@@ -313,41 +362,68 @@ def wire_kernel_phase(torch, K, R, ref, rref, comm):
             hi_t = torch.tensor(float(hi), device="cuda")
             agg, nrm = R.rank_band_mean(g, alive, lo_t, hi_t)
             agg_r, nrm_r = rref.rank_band_mean_ref(g, alive, lo_t, hi_t)
+            row, _ = rref.rank_band_mean_rowwise(g, alive, lo_t, hi_t)
             torch.cuda.synchronize()
             e = check_scaled("rank_band_mean", agg, agg_r)
             check_close("rank_band_mean norm", nrm, nrm_r, 1e-4, 1e-6)
+            require(torch.equal(agg, row), f"rank_band_mean M={m}: not "
+                    f"bitwise the row-order emulation")
             again = R.rank_band_mean(g, alive, lo_t, hi_t)
             require(torch.equal(agg, again[0]) and torch.equal(nrm, again[1]),
                     "rank_band_mean is not deterministic")
+            values = R.rank_band_mean(g, alive, float(lo), float(hi))
+            require(torch.equal(agg, values[0]) and
+                    torch.equal(nrm, values[1]),
+                    "rank_band_mean: lo, hi as values differ from tensors")
             errs.append(e)
         say(f"rank_band_mean M={m} N={n} ties={ties} dead={len(dead)} "
-            f"(tile {R.tile_width(m)}): max abs err {max(errs[-2:]):.3e} "
+            f"({R.plan(m, n).path}): max abs err {max(errs[-2:]):.3e} "
             f"(tol rtol {KERNEL_RTOL} atol {KERNEL_ATOL} x max|agg|; norm "
-            f"rtol 1e-4) deterministic")
-    m, n = 10, 62006
-    bytes_in = 4 * (m * n + m + 2)
-    gs = [stack(m, n, False) for _ in range(n_rotating(bytes_in))]
-    alive = torch.ones(m, device="cuda")
-    # trimmed_mean's band at trim_frac 0.25 and m = 10: ranks 2..7
-    lo_t = torch.tensor(2.0, device="cuda")
-    hi_t = torch.tensor(7.0, device="cuda")
-    ms = graph_ms(torch, lambda i: R.rank_band_mean(gs[i], alive, lo_t,
-                                                     hi_t), len(gs))
-    plain_ms = graph_ms(torch, lambda i: rref.rank_band_mean_ref(
-        gs[i], alive, lo_t, hi_t), len(gs))
-    moved = bytes_in + 4 * (n + 1)
-    # per (row, row) pair: two compares, a multiply and an add; the band's
-    # test and sum per row, the mean and the norm per coordinate
-    bound_ms, bound_by = bound_of(moved, 4 * m * m * n + 4 * m * n + 3 * n)
-    reports["rank_band_mean"] = dict(
-        name="rank_band_mean", route="cuda",
-        source="src/repro_torch/kernels/robust/csrc/robust.cu",
-        replaces="src/repro/kernels/robust/robust.py:63",
-        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None)
-    say(f"rank_band_mean (M,N)=({m},{n}), {moved} bytes: kernel_ms={ms:.5f} "
-        f"bound_ms={bound_ms:.5f} ({bound_by}) plain_ms={plain_ms:.5f} "
-        f"library_ms=none (no single call)")
+            f"rtol 1e-4); bitwise the row-order emulation; deterministic; "
+            f"lo, hi as values or tensors alike")
+    for m in (10, 40):
+        alive = torch.ones(m, device="cuda")
+        lo_t = torch.tensor(2.0, device="cuda")
+        hi_t = torch.tensor(m - 3.0, device="cuda")
+        replay_check(f"rank_band_mean M={m} ({R.plan(m, 62006).path})",
+                     lambda g: R.rank_band_mean(g, alive, lo_t, hi_t),
+                     [stack(m, 62006, True), stack(m, 62006, False)])
+    # trimmed_mean's band at trim_frac 0.25 and m = 10: ranks 2..7; then
+    # bytes at 671 MB, and the panel path, whose pairwise comparisons
+    # outgrow the loads from M of about 200 on
+    for m, n, replays in ((10, 62006, 20), (10, 16777216, 20),
+                          (256, 62006, 5), (2000, 62006, 2)):
+        bytes_in = 4 * (m * n + m + 2)
+        gs = [torch.randn(m, n, device="cuda", generator=cuda_gen)
+              for _ in range(n_rotating(bytes_in))]
+        alive = torch.ones(m, device="cuda")
+        lo_t = torch.tensor(float(m // 4 if m > 10 else 2), device="cuda")
+        hi_t = m - 1 - lo_t
+        ms = graph_ms(torch, lambda i: R.rank_band_mean(gs[i], alive, lo_t,
+                                                         hi_t), len(gs),
+                      replays=replays)
+        moved = bytes_in + 4 * (n + 1)
+        bound_ms, bound_by = bound_of(moved, rank_band_ops(m, n))
+        # the pairwise ranks' own work (two compares, a multiply and an
+        # add a pair of rows): a rate, not a bound
+        pair_rate = 4 * m * m * n / (ms * 1e-3)
+        say(f"rank_band_mean (M,N)=({m},{n}) {R.plan(m, n).path}, {moved} "
+            f"bytes: kernel_ms={ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}) "
+            f"share of bound {bound_ms / ms:.3f}; pairwise work "
+            f"{pair_rate / 1e12:.2f} Tops/s ({pair_rate / F32_OPS_PER_S:.3f} "
+            f"of the f32 peak); launch floor {floor_ms:.5f}")
+        if (m, n) == (10, 62006):
+            plain_ms = graph_ms(torch, lambda i: rref.rank_band_mean_ref(
+                gs[i], alive, lo_t, hi_t), len(gs))
+            reports["rank_band_mean"] = dict(
+                name="rank_band_mean", route="cuda",
+                source="src/repro_torch/kernels/robust/csrc/robust.cu",
+                replaces="src/repro/kernels/robust/robust.py:63",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            say(f"rank_band_mean (M,N)=({m},{n}): plain_ms={plain_ms:.5f} "
+                f"library_ms=none (no single call)")
+        del gs
     return reports
 
 
@@ -895,17 +971,9 @@ def lm_slice_phase(torch, card, kernels):
     return counts
 
 
-def flash_bf16_build_check(build):
-    """The bf16 flash kernel's build: each template's registers and spill
-    bytes from ptxas -v (none may spill, and no setmaxnreg may be dropped),
-    and its tensor-core instructions (HGMMA) in the SASS."""
-    name = "flash_attention_bf16"
-    if name not in build.BUILD_LOG:      # built before this run: build anew
-        build.library_path(name).unlink()
-        build.build_all((name,))
-    log = build.BUILD_LOG[name]
-    require("setmaxnreg ignored" not in log,
-            "ptxas ignored setmaxnreg in the bf16 flash kernel")
+def ptxas_report(log):
+    """{entry function: {"regs": registers, "spill": spill bytes}} from
+    nvcc's ptxas -v output."""
     found, entry = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -919,7 +987,42 @@ def flash_bf16_build_check(build):
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
             found.setdefault(entry, {})["regs"] = int(m[1])
-    kernels = {k: v for k, v in found.items() if "flash_bf16_kernel" in k}
+    return found
+
+
+def reduction_build_check(build):
+    """The one-launch reductions' kernels (ncv_weighted_sum's three vector
+    widths, rank_band_mean's nine register-path and one panel-path
+    templates): registers from ptxas -v, and none may spill."""
+    want = dict(rloo=("ncv_weighted_sum_kernel", 3),
+                robust=("rank_band_", 10))
+    for lib, (tag, count) in want.items():
+        if lib not in build.BUILD_LOG:   # built before this run: build anew
+            build.library_path(lib).unlink()
+            build.build_all((lib,))
+        kernels = {k: v for k, v in ptxas_report(build.BUILD_LOG[lib]).items()
+                   if tag in k}
+        require(len(kernels) == count, f"ptxas reported {len(kernels)} "
+                                       f"{tag} kernels, want {count}")
+        for entry, v in sorted(kernels.items()):
+            say(f"{lib}: {entry}: {v['regs']} registers, {v['spill']} spill "
+                f"bytes")
+            require(v["spill"] == 0, f"{entry} spills {v['spill']} bytes")
+
+
+def flash_bf16_build_check(build):
+    """The bf16 flash kernel's build: each template's registers and spill
+    bytes from ptxas -v (none may spill, and no setmaxnreg may be dropped),
+    and its tensor-core instructions (HGMMA) in the SASS."""
+    name = "flash_attention_bf16"
+    if name not in build.BUILD_LOG:      # built before this run: build anew
+        build.library_path(name).unlink()
+        build.build_all((name,))
+    log = build.BUILD_LOG[name]
+    require("setmaxnreg ignored" not in log,
+            "ptxas ignored setmaxnreg in the bf16 flash kernel")
+    kernels = {k: v for k, v in ptxas_report(log).items()
+               if "flash_bf16_kernel" in k}
     require(len(kernels) == 4, f"ptxas reported {len(kernels)} bf16 flash "
                                f"kernels, want 4")
     for entry, v in sorted(kernels.items()):
@@ -1070,13 +1173,17 @@ def main() -> int:
             say(f"[nvcc {name}] {line}")
     say(f"build: {secs:.2f} s -> {build.BUILD_DIR}")
     flash_bf16_build_check(build)
+    reduction_build_check(build)
 
     phase_s["build"] = time.perf_counter() - t_phase
 
     t_phase = time.perf_counter()
     say("== phase 3: kernels vs plain versions")
-    reports = kernel_phase(torch, K, ref)
-    reports.update(wire_kernel_phase(torch, K, R, ref, rref, comm))
+    floor_ms = launch_floor_ms(torch)
+    say(f"launch floor: a 1-element add_ in a CUDA graph, {floor_ms:.5f} ms "
+        f"a node")
+    reports = kernel_phase(torch, K, ref, floor_ms)
+    reports.update(wire_kernel_phase(torch, K, R, ref, rref, comm, floor_ms))
     reports.update(lm_kernel_phase(torch, card))
     phase_s["kernels"] = time.perf_counter() - t_phase
 

@@ -26,9 +26,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # repro_torch/kernels/ (all of them go into the library's hash; the `.cu`
 # files go to nvcc)
 LIBRARIES = {
-    "rloo": ("rloo/csrc/rloo.cu",),
+    "rloo": ("rloo/csrc/rloo.cu", "csrc/reduction.cuh"),
     "rloo_q": ("rloo/csrc/rloo_q.cu",),
-    "robust": ("robust/csrc/robust.cu",),
+    "robust": ("robust/csrc/robust.cu", "csrc/reduction.cuh"),
     "flash_attention": ("flash_attention/csrc/flash_attention.cu",),
     "flash_attention_bf16": ("flash_attention/csrc/flash_attention_bf16.cu",
                              "flash_attention/csrc/wgmma.cuh"),

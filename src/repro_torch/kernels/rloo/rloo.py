@@ -6,8 +6,9 @@ of microbatch gradients: mean, reshaped units g' = g - alpha (K gbar - g) /
 (K, N) kernel over the cohort; here the cohort axis is the kernel's grid.
 
 `ncv_weighted_sum` — the server-side collapsed Eq. 10-12 reduction
-sum_u w_u g_u over the (M, N) stack plus ||agg||^2; `ncv_aggregate`
-derives the weights with `ncv_coefficients`.
+sum_u w_u g_u over the (M, N) stack plus ||agg||^2, both from one launch
+(`kernels/reduction.py` plans it); `ncv_aggregate` derives the weights with
+`ncv_coefficients`.
 
 `ncv_weighted_sum_q` / `ncv_weighted_sum_q4` — the same weighted sum
 straight off the int8 / packed-int4 wire (`csrc/rloo_q.cu`): the codes are
@@ -25,7 +26,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, reduction
 from repro_torch.kernels.rloo.ref import (ncv_weighted_sum_q4_ref,
                                           ncv_weighted_sum_q_ref,
                                           ncv_weighted_sum_ref,
@@ -43,7 +44,7 @@ def _lib():
         f.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
         f.restype = ci
         h = lib.ncv_weighted_sum_f32
-        h.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+        h.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         h.restype = ci
         lib.rloo_threads_per_block.restype = ci
         _FNS.update(rloo=f, wsum=h, threads=lib.rloo_threads_per_block())
@@ -154,16 +155,20 @@ def ncv_weighted_sum(g, w):
         raise ValueError(f"ncv_weighted_sum takes 1 <= M, N < 2**31, "
                          f"got M={m}, N={n}")
     fns = _lib()
-    n_blocks = -(-n // fns["threads"])
     agg = torch.empty((n,), dtype=torch.float32, device=g.device)
-    parts = torch.empty((n_blocks,), dtype=torch.float32, device=g.device)
+    nrm = torch.empty((), dtype=torch.float32, device=g.device)
+    vec = reduction.vector_width(n, g)
+    blocks = reduction.grid_blocks(n // vec)
+    parts = torch.empty((blocks,), dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
+        stream = torch.cuda.current_stream(g.device)
         rc = fns["wsum"](g.data_ptr(), w.data_ptr(), agg.data_ptr(),
-                         parts.data_ptr(), m, n, stream)
+                         parts.data_ptr(), nrm.data_ptr(), m, n, vec, blocks,
+                         reduction.ticket_slot(g.device, stream),
+                         stream.cuda_stream)
     _raise_on(rc, "ncv_weighted_sum")
     ncv_weighted_sum.launches += 1
-    return agg, parts.sum()
+    return agg, nrm
 
 
 ncv_weighted_sum.launches = 0

@@ -14,6 +14,7 @@ import torch
 from repro_torch import configs
 from repro_torch.data import federated_splits
 from repro_torch.fed import FLConfig, Simulator, Task
+from repro_torch.kernels import reduction
 from repro_torch.kernels.flash_attention import flash_attention as FA
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.rloo import rloo as K
@@ -22,7 +23,8 @@ from repro_torch.kernels.rloo.ref import (ncv_weighted_sum_q4_ref,
                                           ncv_weighted_sum_ref,
                                           rloo_combine_ref)
 from repro_torch.kernels.robust import robust as R
-from repro_torch.kernels.robust.ref import rank_band_mean_ref
+from repro_torch.kernels.robust.ref import (rank_band_mean_ref,
+                                            rank_band_mean_rowwise)
 from repro_torch.kernels.selective_scan import selective_scan as SS
 from repro_torch.kernels.selective_scan.ops import scan_states
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
@@ -64,7 +66,7 @@ def test_rloo_combine_kernel_matches_plain(cuda, c, k, n):
 
 
 @pytest.mark.parametrize("m,n", [(10, 62006), (2, 62006), (7, 1000),
-                                 (1, 300)])
+                                 (1, 300), (3, 4097), (5, 1003), (40, 4096)])
 def test_ncv_weighted_sum_kernel_matches_plain(cuda, m, n):
     g = _randn(m + n, m, n).to(cuda)
     w = torch.linspace(0.1, 1.0, m).to(cuda)
@@ -198,11 +200,101 @@ def test_rank_band_mean_kernel_matches_plain(cuda, m, n):
         assert torch.equal(agg, again[0]) and torch.equal(nrm, again[1])
 
 
-def test_rank_band_mean_refuses_rows_beyond_shared_memory(cuda):
-    g = torch.zeros(R.MAX_ROWS + 1, 64, device=cuda)
-    with pytest.raises(ValueError, match=str(R.MAX_ROWS)):
-        R.rank_band_mean(g, torch.ones(R.MAX_ROWS + 1, device=cuda), 0.0,
-                         0.0)
+def test_rank_band_mean_takes_cohorts_beyond_the_old_row_cap(cuda):
+    # the panel path: shared memory does not grow with M
+    m, n = 2000, 777
+    g = _stack_with_ties(m + n, m, n).to(cuda)
+    alive = torch.ones(m)
+    alive[::7] = 0.0
+    alive = alive.to(cuda)
+    m_v = float(alive.sum())
+    for lo, hi in ((250.0, m_v - 251.0), (np.floor((m_v - 1) / 2),
+                                          np.ceil((m_v - 1) / 2))):
+        agg, nrm = R.rank_band_mean(g, alive, lo, hi)
+        agg_r, nrm_r = rank_band_mean_ref(g, alive, lo, hi)
+        torch.cuda.synchronize()
+        _close_scaled(agg, agg_r)
+        torch.testing.assert_close(nrm, nrm_r, rtol=1e-4, atol=1e-6)
+        assert torch.equal(agg, rank_band_mean_rowwise(g, alive, lo, hi)[0])
+
+
+@pytest.mark.parametrize("m,n", [(10, 62006), (7, 4097), (32, 1000),
+                                 (33, 4099), (256, 777)])
+@pytest.mark.parametrize("ranks_on_card", [True, False])
+def test_rank_band_mean_kernel_equals_row_order_bitwise(cuda, m, n,
+                                                        ranks_on_card):
+    g = _stack_with_ties(m * n, m, n).to(cuda)
+    alive = torch.ones(m)
+    alive[1::5] = 0.0
+    alive = alive.to(cuda)
+    m_v = float(alive.sum())
+    lo = min(1.0, np.floor((m_v - 1) / 2))
+    hi = m_v - 1 - lo
+    if ranks_on_card:
+        lo, hi = (torch.tensor(x, dtype=torch.float32, device=cuda)
+                  for x in (lo, hi))
+    agg, _ = R.rank_band_mean(g, alive, lo, hi)
+    assert torch.equal(agg, rank_band_mean_rowwise(g, alive, lo, hi)[0])
+
+
+def _device_ops(fn):
+    """Names of the device operations one call of `fn` runs, and whether any
+    of them copies (torch.profiler's CUDA-side events)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                      # build, load, first launch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("case", ["wsum", "band-tensors", "band-floats",
+                                  "band-panels"])
+def test_one_call_is_one_kernel_and_no_copy(cuda, case):
+    m = 40 if case == "band-panels" else 10
+    g = _randn(3, m, 62006).to(cuda)
+    alive = torch.ones(m, device=cuda)
+    if case == "wsum":
+        w = torch.linspace(0.1, 1.0, m).to(cuda)
+        fn, name = (lambda: K.ncv_weighted_sum(g, w)), "ncv_weighted_sum"
+    else:
+        lo, hi = 2.0, m - 3.0
+        if case != "band-floats":
+            lo, hi = (torch.tensor(x, device=cuda) for x in (lo, hi))
+        fn, name = (lambda: R.rank_band_mean(g, alive, lo, hi)), "rank_band"
+    ops = _device_ops(fn)
+    assert len(ops) == 1 and name in ops[0], ops
+    assert not any("Memcpy" in o or "Memset" in o for o in ops), ops
+
+
+@pytest.mark.parametrize("case", ["wsum", "band", "band-panels"])
+def test_graph_replays_and_two_streams_are_bitwise_equal(cuda, case):
+    m = 40 if case == "band-panels" else 10
+    gs = [_randn(10 + i, m, 62006).to(cuda) for i in range(2)]
+    w = torch.linspace(0.1, 1.0, m).to(cuda)
+    alive = torch.ones(m, device=cuda)
+    lo = torch.tensor(2.0, device=cuda)
+    hi = torch.tensor(m - 3.0, device=cuda)
+
+    def call(g):
+        if case == "wsum":
+            return K.ncv_weighted_sum(g, w)
+        return R.rank_band_mean(g, alive, lo, hi)
+
+    reduction.check_replays(call, gs, replays=20)
+
+
+def test_rank_band_mean_rejects_ranks_it_cannot_read(cuda):
+    g = torch.zeros(4, 100, device=cuda)
+    alive = torch.ones(4, device=cuda)
+    with pytest.raises(TypeError):
+        R.rank_band_mean(g, alive, torch.tensor(1.0, dtype=torch.float64,
+                                                device=cuda), 2.0)
+    with pytest.raises(TypeError):
+        R.rank_band_mean(g, alive, 1.0, torch.ones(2, device=cuda))
 
 
 @pytest.mark.parametrize("kw,kernel", [

@@ -12,6 +12,9 @@ Tolerances and why:
   masked median — bitwise: a sort and one average of the same two values;
   norms of the results — rtol 1e-4: a sum of N squares in another order.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +24,7 @@ from repro.fed import aggregators as jagg
 from repro.kernels.robust import ref as jref
 from repro_torch import comm
 from repro_torch.fed import aggregators as A
+from repro_torch.kernels import reduction
 from repro_torch.kernels.robust import robust as R
 from repro_torch.kernels.robust.ref import (masked_median_1d,
                                             rank_band_mean_ref)
@@ -182,14 +186,49 @@ def test_aggregate_stack_decodes_the_wire_once(name):
     assert dense["w"].shape == (20, 30)
 
 
-def test_tile_width_fits_shared_memory_up_to_the_row_limit():
-    for m in (1, 10, 12, 33, 256, 1000, R.MAX_ROWS):
-        t = R.tile_width(m)
-        assert 32 <= t <= 256 and t % 32 == 0
-        assert R.smem_bytes(m, t) <= R.SMEM_LIMIT
-    assert R.tile_width(10) == 256
-    assert R.smem_bytes(R.MAX_ROWS + 1, 32) > R.SMEM_LIMIT
-    assert R.MAX_ROWS >= 256
+def _kernel_static_shared_bytes():
+    """The most static shared memory a block of `robust.cu`'s kernels can
+    declare, read from the sources: every `__shared__` array of robust.cu
+    and of the reduction.cuh it includes, its extents evaluated from the
+    files' integer constants (grid_sum's block at the larger of the two
+    kernels' sizes).  An extent that names anything else (M, N) raises."""
+    csrc = Path(R.__file__).parent / "csrc" / "robust.cu"
+    texts = [csrc.read_text(),
+             (csrc.parents[2] / "csrc" / "reduction.cuh").read_text()]
+    consts = {k: int(v) for t in texts
+              for k, v in re.findall(r"constexpr int (\w+) = (\d+);", t)}
+    consts["kThreads"] = max(consts["kThreads"], consts["kPanelThreads"])
+    size = {"float": 4, "bool": 1}
+    total = 0
+    for t in texts:
+        for kind, dims in re.findall(r"__shared__ (\w+) \w+((?:\[[^\]]+\])*);",
+                                     t):
+            nbytes = size[kind]
+            for d in re.findall(r"\[([^\]]+)\]", dims):
+                nbytes *= eval(d.replace("/", "//"), {"__builtins__": {}},
+                               consts)
+            total += nbytes
+    return total, consts
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 10, 16, 17, 32, 33, 257, 1761, 2000,
+                                100000])
+def test_launch_plan_fits_shared_memory_for_any_cohort(m):
+    smem, consts = _kernel_static_shared_bytes()
+    assert smem <= 48 * 1024            # static, without opting in, any M
+    assert (consts["kRegRows"], consts["kPanelThreads"]) == (R.REG_ROWS,
+                                                             R.PANEL_THREADS)
+    for n, vec in ((62006, 2), (4099, 1), (16777216, 4)):
+        p = R.plan(m, n, vec)
+        if m <= R.REG_ROWS:
+            assert (p.path, p.vec) == ("registers", vec)
+            # every column is some thread's: one vector each, or a stride
+            assert p.blocks == min(-(-n // vec // reduction.THREADS),
+                                   reduction.GRID_CAP)
+        else:
+            assert (p.path, p.vec) == ("panels", 1)
+            assert p.blocks * R.PANEL_THREADS >= n > \
+                (p.blocks - 1) * R.PANEL_THREADS
 
 
 def test_rank_band_wrapper_rejects_what_the_kernel_does_not_take():
