@@ -5,21 +5,25 @@
 
 Phases, in order (each prints its seconds); any failure exits nonzero
 without the final `ok` line:
-  1. device  — the card's name, count and power limit; TF32 off for
-               matmuls and cuDNN convolutions (LeNet stays f32).
+  1. device  — the card's name, count and power limit; TF32 off for the
+               process's matmuls and cuDNN convolutions (the LM paths; the
+               FL simulator sets its own flags, which phase 4 checks).
   2. build   — compiles all six CUDA libraries from
                `src/repro_torch/kernels` (one `nvcc` each, in parallel); the
                bf16 flash kernel's registers and spill bytes (ptxas -v: none
                may spill) and its tensor-core instructions in the SASS
                (cuobjdump: HGMMA); the same spill check for the one-launch
-               reductions (`ncv_weighted_sum`, `rank_band_mean`).
+               reductions (`ncv_weighted_sum`, the wire kernels
+               `ncv_weighted_sum_q` / `_q4`, `rank_band_mean`).
   3. kernels — each kernel against its plain PyTorch version on the card at
                the main path's shapes and at other cohort sizes and ragged
                widths (ties and dead rows for `rank_band_mean`, whose band
                must also equal the row-order emulation bitwise, up to
                M = 2,000; lo and hi as values and as device tensors alike);
                the one-launch reductions bitwise equal over CUDA-graph
-               replays and on two streams at once; the flash
+               replays and on two streams at once (the wire kernels at
+               every shape they are checked at, each call also one device
+               kernel and no copy under torch.profiler); the flash
                kernel at the llama3.2-3b and gemma2-9b prefill shapes (bf16
                and f32), the reference's sweep (f32), ragged S, and the bf16
                tensor-core kernel's head widths, GQA ratios, masks, short
@@ -31,8 +35,9 @@ without the final `ok` line:
                computing the same function; the bf16 flash kernel must reach
                a quarter of its bound at the llama3.2-3b shape.  Beside
                them, a launch floor (a 1-element `add_` timed the same
-               way), and `ncv_weighted_sum` (with `w @ g`) and
-               `rank_band_mean` at (10, 16,777,216), where bytes dominate;
+               way), and `ncv_weighted_sum` (with `w @ g`), the wire
+               kernels and `rank_band_mean` at 16,777,216 columns (codes)
+               of 10 rows, where bytes dominate;
                `rank_band_mean` also at M = 256 and 2,000, where its
                pairwise comparisons take the time (their rate is printed
                beside the bound, which counts a sort's comparisons).
@@ -44,7 +49,11 @@ without the final `ok` line:
                the robust aggregators (trimmed_mean, median over the int8
                wire, norm_clip).  Checks the launch counts, `bytes_up`,
                finiteness, and the parameters against a CPU replay of the
-               same draws through the plain versions.  Then the LM serving
+               same draws through the plain versions (with the margin, the
+               largest err / (atol + rtol |x|)); the fedncv beta = 0 draws run
+               on the card a second time with the process's
+               cudnn.allow_tf32 and cudnn.benchmark True and must give the
+               same bits.  Then the LM serving
                slice at full width from random bf16 params: llama3.2-3b
                (28 layers) prefill B 2 x S 4096, falcon-mamba-7b (64 layers)
                B 1 x S 2048, gemma2-9b cut to 2 layers (one local/global
@@ -138,6 +147,25 @@ def replay_check(name, call, inputs, replays=20):
     reduction.check_replays(call, inputs, replays)
     say(f"{name}: bitwise equal over {replays} graph replays and "
         f"{replays} x {len(inputs)} calls on {len(inputs)} streams at once")
+
+
+def one_kernel_check(torch, name, fn, tag):
+    """One call of `fn` is one device kernel (its name holding `tag`) and
+    no memcpy or memset (torch.profiler's CUDA-side events)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                      # build, load, first launch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if len(ops) != 1 or tag not in ops[0] or any(
+            "Memcpy" in o or "Memset" in o for o in ops):
+        raise AssertionError(f"{name}: one call ran {ops}, want one {tag} "
+                             f"kernel and no copy")
+    say(f"{name}: one call is one device kernel, no memcpy or memset")
 
 
 def require(cond, msg):
@@ -290,21 +318,45 @@ def wire_kernel_phase(torch, K, R, ref, rref, comm, floor_ms):
         w, _ = codec.encode(x, None, u)
         return codec, w["q"], w["s"]
 
-    for kname, cname, kern, plain, replaces, row_bytes in (
+    def raw_wire(int4, m, c, chunk, offset=0):
+        """A random (M, C*chunk) int8 or packed-int4 wire made on the card,
+        its codes `offset` bytes past an aligned allocation (the kernels
+        then take narrower loads), and its (M, C) scales."""
+        nb = c * chunk // (2 if int4 else 1)
+        lo, hi, dt = (0, 256, torch.uint8) if int4 else (-127, 128, torch.int8)
+        flat = torch.randint(lo, hi, (m * nb + offset,), device="cuda",
+                             generator=cuda_gen, dtype=torch.int32).to(dt)
+        sc = torch.rand(m, c, device="cuda", generator=cuda_gen) * 1e-2 + 1e-4
+        return flat[offset:].view(m, nb), sc
+
+    for kname, cname, kern, plain, replaces, tag in (
             ("ncv_weighted_sum_q", "int8", K.ncv_weighted_sum_q,
              ref.ncv_weighted_sum_q_ref,
-             "src/repro/kernels/rloo/rloo.py:233", 1.0),
+             "src/repro/kernels/rloo/rloo.py:233", "wsum_q_i8"),
             ("ncv_weighted_sum_q4", "int4", K.ncv_weighted_sum_q4,
              ref.ncv_weighted_sum_q4_ref,
-             "src/repro/kernels/rloo/rloo.py:308", 0.5)):
+             "src/repro/kernels/rloo/rloo.py:308", "wsum_q4_u8")):
+        int4 = cname == "int4"
         errs = []
         # the slice's shapes, bench_faults' full participation, the
-        # smallest cohort, a larger one, a chunk that is no multiple of
-        # the block
-        for m, n, chunk in ((10, 62006, 512), (12, 62006, 512),
-                            (2, 62006, 512), (40, 62006, 512),
-                            (7, 1299, 100)):
-            codec, q, sc = wire(cname, m, n, chunk)
+        # smallest cohort, a larger one, a chunk that is no power of two
+        # (narrower loads), codes 1 and 8 bytes off alignment (1- and
+        # 8-byte loads), and 16,777,216 codes, where bytes dominate
+        for m, n, chunk, offset in ((10, 62006, 512, None),
+                                    (12, 62006, 512, None),
+                                    (2, 62006, 512, None),
+                                    (40, 62006, 512, None),
+                                    (7, 1299, 100, None), (10, 62006, 512, 1),
+                                    (10, 62006, 512, 8),
+                                    (10, 16777216, 512, 0)):
+            if offset is None:
+                ins = [wire(cname, m, n, chunk)[1:] for _ in range(2)]
+            else:
+                ins = [raw_wire(int4, m, -(-n // chunk), chunk, offset)
+                       for _ in range(2)]
+            q, sc = ins[0]
+            c = sc.shape[1]
+            vec, blocks = K.wire_plan(q, chunk, 2 if int4 else 1)
             w = (torch.rand(m, generator=gen) - 0.2).cuda()
             agg, nrm = kern(q, sc, w, chunk=chunk)
             agg_r, nrm_r = plain(q, sc, w, chunk=chunk)
@@ -315,28 +367,45 @@ def wire_kernel_phase(torch, K, R, ref, rref, comm, floor_ms):
             require(torch.equal(agg, again[0]) and torch.equal(nrm, again[1]),
                     f"{kname} is not deterministic")
             errs.append(e)
-            say(f"{kname} M={m} C={codec.n_chunks} chunk={chunk}: max abs "
-                f"err {e:.3e} (tol rtol {KERNEL_RTOL} atol {KERNEL_ATOL} x "
-                f"max|agg|; norm rtol 1e-4) deterministic")
-        m, c, chunk = 10, 122, 512
-        n_bytes = int(m * c * chunk * row_bytes)
-        bytes_in = n_bytes + 4 * m * c + 4 * m
-        ins = [wire(cname, m, 62006)[1:] for _ in range(n_rotating(bytes_in))]
-        w = torch.rand(m, generator=gen).cuda()
-        ms = graph_ms(torch, lambda i: kern(*ins[i], w), len(ins))
-        plain_ms = graph_ms(torch, lambda i: plain(*ins[i], w), len(ins))
-        moved = bytes_in + 4 * (c * chunk + 1)
-        # per code: convert, scale, weight, add; then the norm's square-add
-        bound_ms, bound_by = bound_of(moved, 4 * m * c * chunk + 2 * c * chunk)
-        reports[kname] = dict(
-            name=kname, route="cuda",
-            source="src/repro_torch/kernels/rloo/csrc/rloo_q.cu",
-            replaces=replaces, max_abs_err=max(errs), ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None)
-        say(f"{kname} (M,C,chunk)=({m},{c},{chunk}), {moved} bytes: "
-            f"kernel_ms={ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}) "
-            f"plain_ms={plain_ms:.5f} library_ms=none (no single call)")
+            label = f"{kname} M={m} C={c} chunk={chunk} V={vec} blocks={blocks}"
+            say(f"{label}: max abs err {e:.3e} (tol rtol {KERNEL_RTOL} atol "
+                f"{KERNEL_ATOL} x max|agg|; norm rtol 1e-4) deterministic")
+            replay_check(label, lambda x: kern(x[0], x[1], w, chunk=chunk),
+                         ins)
+            one_kernel_check(torch, label, lambda: kern(q, sc, w,
+                                                        chunk=chunk), tag)
+            del ins, q, sc, agg, agg_r, again
+        for m, c, chunk in ((10, 122, 512), (10, 32768, 512)):
+            n_bytes = m * c * chunk // (2 if int4 else 1)
+            bytes_in = n_bytes + 4 * m * c + 4 * m
+            ins = [raw_wire(int4, m, c, chunk)
+                   for _ in range(n_rotating(bytes_in))]
+            w = torch.rand(m, generator=gen).cuda()
+            ms = graph_ms(torch, lambda i: kern(*ins[i], w), len(ins))
+            if c == 122:
+                plain_ms = graph_ms(torch, lambda i: plain(*ins[i], w),
+                                    len(ins))
+            else:                      # gigabytes of temporaries a call
+                plain_ms = event_ms(torch, lambda i: plain(*ins[i], w),
+                                    len(ins))
+            moved = bytes_in + 4 * (c * chunk + 1)
+            # per code: convert, scale, weight, add; the norm's square-add
+            bound_ms, bound_by = bound_of(moved,
+                                          4 * m * c * chunk + 2 * c * chunk)
+            if c == 122:
+                reports[kname] = dict(
+                    name=kname, route="cuda",
+                    source="src/repro_torch/kernels/rloo/csrc/rloo_q.cu",
+                    replaces=replaces, max_abs_err=max(errs), ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=None)
+            say(f"{kname} (M,C,chunk)=({m},{c},{chunk}) V="
+                f"{K.wire_plan(ins[0][0], chunk, 2 if int4 else 1)[0]}, "
+                f"{moved} bytes: kernel_ms={ms:.5f} bound_ms={bound_ms:.5f} "
+                f"({bound_by}) share of bound {bound_ms / ms:.3f}; "
+                f"plain_ms={plain_ms:.5f}; library_ms=none (no single "
+                f"call); launch floor {floor_ms:.5f}")
+            del ins
 
     # -- rank_band_mean: g (M, N), alive (M,), {lo, hi} on the device -------
     def stack(m, n, ties):
@@ -498,9 +567,37 @@ def slice_phase(torch, np, K, card, world):
             f"bytes_up={float(diags['bytes_up'][0]):.0f}, pre={pre:.4f} "
             f"post={post:.4f}, mean alpha={float(sim.alphas.mean()):.6f}")
 
+        if beta == 0.0:
+            # the simulator fixes its own numerics flags and LeNet's card
+            # convolutions bypass cuDNN: the same draws with the process
+            # asking for TF32 and autotuning give the same bits
+            cudnn = torch.backends.cudnn
+            saved = cudnn.allow_tf32, cudnn.benchmark
+            cudnn.allow_tf32, cudnn.benchmark = True, True
+            try:
+                rerun = Simulator(task, params0, train, fl, seed=0)
+                rerun.run_rounds(ROUNDS, draws=draws)
+                torch.cuda.synchronize()
+            finally:
+                cudnn.allow_tf32, cudnn.benchmark = saved
+            require(all(torch.equal(v, rerun.params[k])
+                        for k, v in sim.params.items()) and
+                    torch.equal(sim.alphas, rerun.alphas),
+                    f"{label}: a second card run of the same draws (process "
+                    f"cudnn.allow_tf32 and cudnn.benchmark True) differs")
+            say(f"{label}: a second card run of the same draws, with the "
+                f"process's cudnn.allow_tf32 and cudnn.benchmark True: params "
+                f"and alphas bitwise equal")
+
         # the same draws through the plain versions on the CPU
         cpu = Simulator(task, params0, train, fl, seed=0, device="cpu")
         cdiags = cpu.run_rounds(ROUNDS, draws=draws)
+        # max over elements of err / (atol + rtol |x|): the check passes at
+        # a margin of at most 1
+        margin = max(float(((v.cpu() - cpu.params[k]).abs() / (
+            PARAM_ATOL + PARAM_RTOL * cpu.params[k].abs())).max())
+            for k, v in sim.params.items())
+        say(f"{label}: card vs CPU replay margin {margin:.4f}")
         worst = 0.0
         for key_, v in sim.params.items():
             worst = max(worst, check_close(f"{label} param {key_}",
@@ -515,8 +612,9 @@ def slice_phase(torch, np, K, card, world):
         cpre = cpu.evaluate(test)
         require(abs(cpre - pre) <= 1e-2,
                 f"{label}: pre-test {pre} on the card, {cpre} on the CPU")
-        say(f"{label}: card vs CPU replay: max param abs err {worst:.3e} "
-            f"(tol rtol {PARAM_RTOL} atol {PARAM_ATOL}), pre {pre:.4f} vs "
+        say(f"{label}: card vs CPU replay: max param abs err {worst:.3e}, "
+            f"margin {margin:.4f} (tol rtol {PARAM_RTOL} atol {PARAM_ATOL}: "
+            f"margin <= 1), pre {pre:.4f} vs "
             f"{cpre:.4f} (tol 1e-2), agg_norm rtol 1e-3, bytes_up equal")
     return counts
 
@@ -992,9 +1090,10 @@ def ptxas_report(log):
 
 def reduction_build_check(build):
     """The one-launch reductions' kernels (ncv_weighted_sum's three vector
-    widths, rank_band_mean's nine register-path and one panel-path
-    templates): registers from ptxas -v, and none may spill."""
-    want = dict(rloo=("ncv_weighted_sum_kernel", 3),
+    widths, the wire kernels' five each, rank_band_mean's nine
+    register-path and one panel-path templates): registers from ptxas -v,
+    and none may spill."""
+    want = dict(rloo=("ncv_weighted_sum_kernel", 3), rloo_q=("wsum_q", 10),
                 robust=("rank_band_", 10))
     for lib, (tag, count) in want.items():
         if lib not in build.BUILD_LOG:   # built before this run: build anew

@@ -29,7 +29,11 @@ Without them, idx and sel come from a host `torch.Generator` seeded with
 `seed` and u from a generator on the simulator's device, seeded the same.
 
 The simulator runs on the CUDA device unless `device` says otherwise; it
-raises when no card is present instead of carrying on on the CPU.
+raises when no card is present instead of carrying on on the CPU.  Its
+rounds and `evaluate` run inside `utils.device.deterministic_f32`, whatever
+the caller set globally: cuDNN deterministic with no autotuning and no
+TF32, f32 matmuls without TF32 (the reference computes in f32), so the
+same draws give the same bits run after run.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ from repro_torch.fed import api
 from repro_torch.fed import methods as M
 from repro_torch.fed import sampling
 from repro_torch.fed.api import FLConfig  # noqa: F401  (re-export)
-from repro_torch.utils.device import resolve_device
+from repro_torch.utils.device import deterministic_f32, resolve_device
 from repro_torch.utils.tree_math import flat_spec, tree_bytes, tree_map
 
 
@@ -137,6 +141,7 @@ class Simulator:
     def _cohort_cstates(self, state, idx):
         return api.gather_cohort_states(self._fields, state, idx)
 
+    @deterministic_f32()
     def _client_section_local(self, params, state, draws):
         fl = self.fl
         idx, sel = (d.to(self.device, torch.int64) if torch.is_tensor(d)
@@ -153,6 +158,7 @@ class Simulator:
         return dict(idx=idx, sizes=sizes, grads=outs.grad,
                     cstates=outs.cstate, aux=outs.aux)
 
+    @deterministic_f32()
     def _server_section(self, params, state, pending, r):
         fl, method = self.fl, self.method
         idx, aux = pending["idx"], pending["aux"]
@@ -232,6 +238,7 @@ class Simulator:
         valid = (sizes > 0).float()
         return torch.sum(acc * valid), torch.sum(valid)
 
+    @deterministic_f32()
     def evaluate(self, eval_data, personalize_steps=0, chunk: int = 32):
         """Mean per-client accuracy; personalize_steps > 0 == "test after".
 

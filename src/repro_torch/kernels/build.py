@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # files go to nvcc)
 LIBRARIES = {
     "rloo": ("rloo/csrc/rloo.cu", "csrc/reduction.cuh"),
-    "rloo_q": ("rloo/csrc/rloo_q.cu",),
+    "rloo_q": ("rloo/csrc/rloo_q.cu", "csrc/reduction.cuh"),
     "robust": ("robust/csrc/robust.cu", "csrc/reduction.cuh"),
     "flash_attention": ("flash_attention/csrc/flash_attention.cu",),
     "flash_attention_bf16": ("flash_attention/csrc/flash_attention_bf16.cu",

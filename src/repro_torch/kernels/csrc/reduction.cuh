@@ -1,6 +1,7 @@
 // Deterministic whole-grid sums inside one launch, and vector loads, for the
 // port's streaming reductions (sm_90a): `rloo/csrc/rloo.cu`'s
-// ncv_weighted_sum and `robust/csrc/robust.cu`'s rank_band_mean.
+// ncv_weighted_sum, `rloo/csrc/rloo_q.cu`'s ncv_weighted_sum_q and _q4, and
+// `robust/csrc/robust.cu`'s rank_band_mean.
 //
 // grid_sum<kThreads>(v, parts, slot, out) adds the per-thread values v of
 // the whole grid into *out without a second launch and without float
@@ -99,13 +100,48 @@ __device__ __forceinline__ void load_vec(const float* p, float (&x)[V]) {
   }
 }
 
+// V consecutive bytes (V = 1, 2, 4, 8 or 16; the address aligned to V),
+// read once with the streaming hint, packed little-endian into words: byte
+// k is (x[k / 4] >> 8 (k % 4)) & 0xFF.
+template <int V>
+struct ByteVec {
+  static_assert(V == 1 || V == 2 || V == 4 || V == 8 || V == 16,
+                "V is 1, 2, 4, 8 or 16");
+  static constexpr int kWords = V < 4 ? 1 : V / 4;
+  unsigned int x[kWords];
+};
+
+template <int V>
+__device__ __forceinline__ void load_bytes(const unsigned char* p,
+                                           ByteVec<V>& b) {
+  if constexpr (V == 16) {
+    const uint4 t = __ldcs(reinterpret_cast<const uint4*>(p));
+    b.x[0] = t.x; b.x[1] = t.y; b.x[2] = t.z; b.x[3] = t.w;
+  } else if constexpr (V == 8) {
+    const uint2 t = __ldcs(reinterpret_cast<const uint2*>(p));
+    b.x[0] = t.x; b.x[1] = t.y;
+  } else if constexpr (V == 4) {
+    b.x[0] = __ldcs(reinterpret_cast<const unsigned int*>(p));
+  } else if constexpr (V == 2) {
+    b.x[0] = __ldcs(reinterpret_cast<const unsigned short*>(p));
+  } else {
+    b.x[0] = __ldcs(p);
+  }
+}
+
+// V consecutive floats to p (V = 1, 2 or a multiple of 4; the address
+// aligned to 4 min(V, 4) bytes): one float4 store per four.
 template <int V>
 __device__ __forceinline__ void store_vec(float* p, const float (&x)[V]) {
-  if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < V; i += 4)
+      *reinterpret_cast<float4*>(p + i) =
+          make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
   } else if constexpr (V == 2) {
     *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
   } else {
+    static_assert(V == 1, "V is 1, 2 or a multiple of 4");
     p[0] = x[0];
   }
 }

@@ -1,13 +1,15 @@
 """Launch planning shared by the port's one-launch reductions.
 
 `ncv_weighted_sum` (`rloo/csrc/rloo.cu`) and `rank_band_mean`'s register
-path (`robust/csrc/robust.cu`) stream an (M, N) stack with V-float vector
-loads over a grid that strides across the columns, and finish ||agg||^2 in
-the same launch through `csrc/reduction.cuh::grid_sum`: each block writes a
-partial, and the last block to draw an integer ticket sums the partials in
-index order.  This module picks V and the grid, hands out the tickets'
-slots, and checks on the card that a reduction gives the same bits however
-it is launched (`check_replays`).
+path (`robust/csrc/robust.cu`) stream an (M, N) f32 stack with V-float
+vector loads, and `ncv_weighted_sum_q` / `_q4` (`rloo/csrc/rloo_q.cu`) an
+(M, bytes) int8 / packed-int4 wire with V-byte loads, over a grid that
+strides across the columns.  All four finish ||agg||^2 in the same launch
+through `csrc/reduction.cuh::grid_sum`: each block writes a partial, and the
+last block to draw an integer ticket sums the partials in index order.  This
+module picks V and the grid, hands out the tickets' slots, and checks on the
+card that a reduction gives the same bits however it is launched
+(`check_replays`).
 """
 from __future__ import annotations
 
@@ -27,6 +29,20 @@ def vector_width(n: int, *tensors: torch.Tensor) -> int:
     start 8 bytes off a 16-byte boundary at every odd row, so V = 2."""
     for v in (4, 2):
         if n % v == 0 and all(t.data_ptr() % (4 * v) == 0 for t in tensors):
+            return v
+    return 1
+
+
+def vector_width_bytes(row_bytes: int, unit: int, *tensors: torch.Tensor,
+                       widest: int = 16) -> int:
+    """Bytes per load: the widest of 16, 8, 4, 2, 1 (up to `widest`) that
+    divides `unit` (the row segment a vector must not straddle: a chunk of
+    int8 codes, half a chunk of packed int4), divides the row's length in
+    bytes, and whose alignment every tensor's data pointer meets.  Chunk
+    512 gives 16; chunk 100 gives 4 (int8) and 2 (int4, half-chunk 50)."""
+    for v in (16, 8, 4, 2):
+        if v <= widest and unit % v == 0 and row_bytes % v == 0 and all(
+                t.data_ptr() % v == 0 for t in tensors):
             return v
     return 1
 

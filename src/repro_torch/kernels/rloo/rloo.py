@@ -10,11 +10,12 @@ sum_u w_u g_u over the (M, N) stack plus ||agg||^2, both from one launch
 (`kernels/reduction.py` plans it); `ncv_aggregate` derives the weights with
 `ncv_coefficients`.
 
-`ncv_weighted_sum_q` / `ncv_weighted_sum_q4` — the same weighted sum
-straight off the int8 / packed-int4 wire (`csrc/rloo_q.cu`): the codes are
-dequantized in registers with their per-(client, chunk) scale and never
-written back as f32.  `ncv_aggregate_q` / `ncv_aggregate_q4` derive the
-weights with `ncv_coefficients`.
+`ncv_weighted_sum_q` / `ncv_weighted_sum_q4` — the same weighted sum and
+norm straight off the int8 / packed-int4 wire (`csrc/rloo_q.cu`), also from
+one launch: the codes are read V bytes at a time and dequantized in
+registers with their per-(client, chunk) scale, never written back as f32
+(`wire_plan` picks V and the grid).  `ncv_aggregate_q` / `ncv_aggregate_q4`
+derive the weights with `ncv_coefficients`.
 
 A wrapper takes its plain version (`ref.py`) only for CPU tensors.  For a
 CUDA tensor it launches its kernel or raises; it never falls back.  Each
@@ -56,12 +57,10 @@ def _qlib():
         lib = build.load("rloo_q")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.ncv_weighted_sum_q_i8, lib.ncv_weighted_sum_q4_u8):
-            fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+            fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
             fn.restype = ci
-        lib.rloo_q_threads_per_block.restype = ci
         _QFNS.update(q8=lib.ncv_weighted_sum_q_i8,
-                     q4=lib.ncv_weighted_sum_q4_u8,
-                     threads=lib.rloo_q_threads_per_block())
+                     q4=lib.ncv_weighted_sum_q4_u8)
     return _QFNS
 
 
@@ -200,21 +199,43 @@ def _check_wire(q, scales, w, chunk, codes_per_byte, dtype):
     return m, c
 
 
-def _launch_wire(key, what, q, scales, w, m, c, chunk, n_threads_items):
+def wire_plan(q, chunk, codes_per_byte):
+    """(V, blocks) of a wire kernel's launch on the (M, bytes) code stack
+    `q`: V bytes a load, V dividing the chunk's bytes (int8) or half-chunk
+    (int4) and q's alignment, at most 8 once a row fills the capped grid at
+    8 bytes a thread (the threads then stride) and at most 4 below that
+    (more blocks for short rows); a grid of `reduction.grid_blocks` over
+    the row's vectors.  On the H100 V = 8 moved the most bytes at
+    16,777,216 codes and V = 4 was quickest at the FL slice's 122 chunks
+    (`benchmarks/port/reduction_variants.py`); V = 16 lost at both.  The
+    plan depends on the shapes and the alignment alone, so the norm's order
+    of summation is the same from call to call."""
+    row_bytes = q.shape[1]
+    full = row_bytes // 8 >= reduction.GRID_CAP * reduction.THREADS
+    vec = reduction.vector_width_bytes(row_bytes, chunk // codes_per_byte, q,
+                                       widest=8 if full else 4)
+    return vec, reduction.grid_blocks(row_bytes // vec)
+
+
+def _launch_wire(key, what, q, scales, w, m, c, chunk, codes_per_byte):
     _check_cuda(("q", q), ("scales", scales), ("w", w))
     if not (1 <= m < 2**31 and 1 <= c * chunk < 2**31):
         raise ValueError(f"{what} takes 1 <= M, C*chunk < 2**31, got M={m}, "
                          f"C*chunk={c * chunk}")
     fns = _qlib()
-    n_blocks = -(-n_threads_items // fns["threads"])
+    vec, blocks = wire_plan(q, chunk, codes_per_byte)
     agg = torch.empty((c * chunk,), dtype=torch.float32, device=q.device)
-    parts = torch.empty((n_blocks,), dtype=torch.float32, device=q.device)
+    nrm = torch.empty((), dtype=torch.float32, device=q.device)
+    parts = torch.empty((blocks,), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+        stream = torch.cuda.current_stream(q.device)
         rc = fns[key](q.data_ptr(), scales.data_ptr(), w.data_ptr(),
-                      agg.data_ptr(), parts.data_ptr(), m, c, chunk, stream)
+                      agg.data_ptr(), parts.data_ptr(), nrm.data_ptr(), m, c,
+                      chunk, vec, blocks,
+                      reduction.ticket_slot(q.device, stream),
+                      stream.cuda_stream)
     _raise_on(rc, what)
-    return agg, parts.sum()
+    return agg, nrm
 
 
 def ncv_weighted_sum_q(q, scales, w, *, chunk=512):
@@ -224,7 +245,7 @@ def ncv_weighted_sum_q(q, scales, w, *, chunk=512):
     if q.device.type == "cpu":
         return ncv_weighted_sum_q_ref(q, scales, w, chunk=chunk)
     out = _launch_wire("q8", "ncv_weighted_sum_q", q, scales, w, m, c, chunk,
-                       c * chunk)
+                       1)
     ncv_weighted_sum_q.launches += 1
     return out
 
@@ -239,7 +260,7 @@ def ncv_weighted_sum_q4(qp, scales, w, *, chunk=512):
     if qp.device.type == "cpu":
         return ncv_weighted_sum_q4_ref(qp, scales, w, chunk=chunk)
     out = _launch_wire("q4", "ncv_weighted_sum_q4", qp, scales, w, m, c,
-                       chunk, c * chunk // 2)
+                       chunk, 2)
     ncv_weighted_sum_q4.launches += 1
     return out
 

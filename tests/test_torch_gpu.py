@@ -149,13 +149,22 @@ def _close_scaled(got, want):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
 
 
+def _offset(q, offset, device):
+    """q's codes on `device`, `offset` bytes past an aligned allocation."""
+    flat = torch.empty(q.numel() + offset, dtype=q.dtype, device=device)
+    out = flat[offset:].view(q.shape)
+    out.copy_(q)
+    return out
+
+
 @pytest.mark.parametrize("int4", [False, True])
-@pytest.mark.parametrize("m,n_chunks,chunk", [(10, 122, 512), (12, 122, 512),
-                                              (2, 3, 512), (40, 7, 100)])
+@pytest.mark.parametrize("m,n_chunks,chunk,offset", [
+    (10, 122, 512, 0), (12, 122, 512, 0), (2, 3, 512, 0), (40, 7, 100, 0),
+    (10, 122, 512, 1), (10, 122, 512, 8), (3, 2125, 4096, 0)])
 def test_quantized_weighted_sum_kernels_match_plain(cuda, int4, m, n_chunks,
-                                                    chunk):
-    q, s, w = (t.to(cuda) for t in _wire(m * n_chunks, m, n_chunks, chunk,
-                                         int4))
+                                                    chunk, offset):
+    q, s, w = _wire(m * n_chunks, m, n_chunks, chunk, int4)
+    q, s, w = _offset(q, offset, cuda), s.to(cuda), w.to(cuda)
     kern, plain = ((K.ncv_weighted_sum_q4, ncv_weighted_sum_q4_ref) if int4
                    else (K.ncv_weighted_sum_q, ncv_weighted_sum_q_ref))
     before = kern.launches
@@ -241,6 +250,9 @@ def _device_ops(fn):
     """Names of the device operations one call of `fn` runs, and whether any
     of them copies (torch.profiler's CUDA-side events)."""
     from torch.profiler import ProfilerActivity, profile
+    # every library built before any trace: a trace taken after an nvcc
+    # subprocess started in between reported no device events on the card
+    K._lib(), K._qlib(), R._lib()
     fn()                                      # build, load, first launch
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -251,8 +263,17 @@ def _device_ops(fn):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def _wire_call(case, seed, device):
+    """A wire kernel's call on the slice's (10, 122 chunks of 512) wire."""
+    int4 = case == "wire-int4"
+    q, s, w = (t.to(device) for t in _wire(seed, 10, 122, 512, int4))
+    kern = K.ncv_weighted_sum_q4 if int4 else K.ncv_weighted_sum_q
+    return (lambda qq: kern(qq, s, w)), q, ("wsum_q4_u8" if int4 else
+                                            "wsum_q_i8")
+
+
 @pytest.mark.parametrize("case", ["wsum", "band-tensors", "band-floats",
-                                  "band-panels"])
+                                  "band-panels", "wire-int8", "wire-int4"])
 def test_one_call_is_one_kernel_and_no_copy(cuda, case):
     m = 40 if case == "band-panels" else 10
     g = _randn(3, m, 62006).to(cuda)
@@ -260,6 +281,9 @@ def test_one_call_is_one_kernel_and_no_copy(cuda, case):
     if case == "wsum":
         w = torch.linspace(0.1, 1.0, m).to(cuda)
         fn, name = (lambda: K.ncv_weighted_sum(g, w)), "ncv_weighted_sum"
+    elif case.startswith("wire"):
+        call, q, name = _wire_call(case, 3, cuda)
+        fn = lambda: call(q)                            # noqa: E731
     else:
         lo, hi = 2.0, m - 3.0
         if case != "band-floats":
@@ -270,8 +294,14 @@ def test_one_call_is_one_kernel_and_no_copy(cuda, case):
     assert not any("Memcpy" in o or "Memset" in o for o in ops), ops
 
 
-@pytest.mark.parametrize("case", ["wsum", "band", "band-panels"])
+@pytest.mark.parametrize("case", ["wsum", "band", "band-panels",
+                                  "wire-int8", "wire-int4"])
 def test_graph_replays_and_two_streams_are_bitwise_equal(cuda, case):
+    if case.startswith("wire"):
+        call, q0, _ = _wire_call(case, 10, cuda)
+        q1 = _wire_call(case, 11, cuda)[1]
+        reduction.check_replays(call, [q0, q1], replays=20)
+        return
     m = 40 if case == "band-panels" else 10
     gs = [_randn(10 + i, m, 62006).to(cuda) for i in range(2)]
     w = torch.linspace(0.1, 1.0, m).to(cuda)
@@ -285,6 +315,27 @@ def test_graph_replays_and_two_streams_are_bitwise_equal(cuda, case):
         return R.rank_band_mean(g, alive, lo, hi)
 
     reduction.check_replays(call, gs, replays=20)
+
+
+@pytest.mark.parametrize("int4", [False, True])
+def test_wire_entries_reject_plans_they_do_not_take(cuda, int4):
+    q, s, w = (t.to(cuda) for t in _wire(5, 4, 3, 512, int4))
+    fn = K._qlib()["q4" if int4 else "q8"]
+    agg = torch.empty(3 * 512, device=cuda)
+    nrm = torch.empty((), device=cuda)
+    parts = torch.empty(8, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    ok = dict(vec=16, blocks=1, slot=0, ptr=q.data_ptr(), chunk=512)
+    bad = [dict(vec=3), dict(vec=32), dict(blocks=0), dict(slot=-1),
+           dict(slot=reduction.TICKET_SLOTS), dict(ptr=q.data_ptr() + 1),
+           dict(chunk=24, vec=16)]
+    for change in bad:
+        a = dict(ok, **change)
+        rc = fn(a["ptr"], s.data_ptr(), w.data_ptr(), agg.data_ptr(),
+                parts.data_ptr(), nrm.data_ptr(), 4, 3, a["chunk"], a["vec"],
+                a["blocks"], a["slot"], stream)
+        assert rc != 0, change
+    torch.cuda.synchronize()
 
 
 def test_rank_band_mean_rejects_ranks_it_cannot_read(cuda):
