@@ -47,11 +47,17 @@ without the final `ok` line:
                micro_batch 16, local_epochs 2, 5 rounds on the card; then
                3 rounds each of the compressed wire (int8, int4, bf16) and of
                the robust aggregators (trimmed_mean, median over the int8
-               wire, norm_clip).  Checks the launch counts, `bytes_up`,
-               finiteness, and the parameters against a CPU replay of the
-               same draws through the plain versions (with the margin, the
-               largest err / (atol + rtol |x|)); the fedncv beta = 0 draws run
-               on the card a second time with the process's
+               wire, norm_clip); then the other registered methods with
+               the reference's default options, 3 rounds each (fedprox,
+               scaffold, fedncv+, fedper, fedrep, fedglomo) and 10 of
+               pfedsim (its round-10 head mixing), printing each run's
+               device ms a round (torch.profiler).  Checks the launch
+               counts, `bytes_up`, finiteness, and the parameters against
+               a CPU replay of the same draws through the plain versions
+               (with the margin, the largest err / (atol + rtol |x|); the
+               wire, robust and method runs round by round from the card's
+               state, with every state field); the fedncv beta = 0 draws
+               run on the card a second time with the process's
                cudnn.allow_tf32 and cudnn.benchmark True and must give the
                same bits.  Then the LM serving
                slice at full width from random bf16 params: llama3.2-3b
@@ -518,10 +524,11 @@ def make_world(torch):
     return dict(train=train, test=test, task=task, params0=params0)
 
 
-# the slice's FedNCV options (bench_fl's protocol, the quickstart's alpha)
-FL_KW = dict(method="fedncv", n_clients=40, cohort=10, k_micro=4,
-             micro_batch=16, server_lr=0.5, local_lr=0.05, local_epochs=2,
-             ncv_alpha0=0.3, ncv_alpha_lr=1e-5)
+# bench_fl's protocol, and the slice's FedNCV options (the quickstart's
+# alpha)
+FL_BASE = dict(n_clients=40, cohort=10, k_micro=4, micro_batch=16,
+               server_lr=0.5, local_lr=0.05, local_epochs=2)
+FL_KW = dict(FL_BASE, method="fedncv", ncv_alpha0=0.3, ncv_alpha_lr=1e-5)
 
 
 def slice_phase(torch, np, K, card, world):
@@ -592,11 +599,7 @@ def slice_phase(torch, np, K, card, world):
         # the same draws through the plain versions on the CPU
         cpu = Simulator(task, params0, train, fl, seed=0, device="cpu")
         cdiags = cpu.run_rounds(ROUNDS, draws=draws)
-        # max over elements of err / (atol + rtol |x|): the check passes at
-        # a margin of at most 1
-        margin = max(float(((v.cpu() - cpu.params[k]).abs() / (
-            PARAM_ATOL + PARAM_RTOL * cpu.params[k].abs())).max())
-            for k, v in sim.params.items())
+        margin = margin_of(sim.params, cpu.params)
         say(f"{label}: card vs CPU replay margin {margin:.4f}")
         worst = 0.0
         for key_, v in sim.params.items():
@@ -770,6 +773,162 @@ def wire_slice_phase(torch, np, kernels, card, world):
             f"the tolerance {n_off} of {n_vals}, pre {pre:.4f} vs {cpre:.4f} "
             f"(tol 1e-2), agg_norm rtol 1e-3, bytes_up equal")
     return counts
+
+
+# the paper's other Table-1 methods and the beyond-paper ones at the same
+# protocol, each with the reference's default options: (method, rounds);
+# pfedsim runs 10 so that its round-10 head mixing runs
+METHOD_RUNS = (("fedprox", 3), ("scaffold", 3), ("fedncv+", 3),
+               ("fedper", 3), ("fedrep", 3), ("pfedsim", 10),
+               ("fedglomo", 3))
+# bytes_up a round at cohort 10, the reference's accounting: the identity
+# wire, 10 x 4 N = 2,480,240 B, plus SCAFFOLD's delta_c (another 4 N a
+# client) or pFedSim's flattened head (850 floats a client)
+METHOD_BYTES_UP = {"scaffold": 4960480, "pfedsim": 2514240}
+
+
+def off_tolerance(torch, card, cpu):
+    """(values off the replay tolerance, values) of two trees of stacked
+    leaves (the card's on any device, the CPU's)."""
+    from repro_torch.utils.tree_math import tree_leaves
+    a, b = tree_leaves(card), tree_leaves(cpu)
+    if not a:
+        return 0, 0
+    a = torch.cat([x.detach().float().cpu().reshape(-1) for x in a])
+    b = torch.cat([x.float().reshape(-1) for x in b])
+    off = (a - b).abs() > PARAM_ATOL + PARAM_RTOL * b.abs()
+    return int(off.sum()), off.numel()
+
+
+def margin_of(card, cpu):
+    """max over the leaves of err / (atol + rtol |x|): at most 1 passes."""
+    from repro_torch.utils.tree_math import tree_leaves
+    return max((float(((x.cpu() - y).abs() / (
+        PARAM_ATOL + PARAM_RTOL * y.abs())).max()) for x, y in zip(
+            tree_leaves(card), tree_leaves(cpu)) if y.numel()), default=0.0)
+
+
+def device_ms_per_round(torch, sim, draws):
+    """Device ms and device operations a round, from torch.profiler over
+    `len(draws)` rounds of `sim` (sum of the device kernels' times)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sim.run_rounds(len(draws), draws=draws)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.device_time for e in dev) / 1e3 / len(draws),
+            len(dev) / len(draws))
+
+
+def methods_slice_phase(torch, np, kernels, card, world):
+    """fedprox, scaffold, fedncv+, fedper, fedrep, pfedsim and fedglomo on
+    the card at the slice's protocol, each replayed on the CPU round by
+    round from the card's state; returns the launch count of
+    `ncv_weighted_sum` of the first run."""
+    from repro_torch.fed import FLConfig, Simulator
+    from repro_torch.utils.tree_math import tree_map
+
+    class Recording(Simulator):
+        """Keeps, by reference, each round's starting params and state and
+        its client section's output."""
+
+        def _client_section_local(self, params, state, draws):
+            pending = super()._client_section_local(params, state, draws)
+            self.record.append((params, state, pending))
+            return pending
+
+    train, test, task = world["train"], world["test"], world["task"]
+    params0 = world["params0"]
+    to_cpu = lambda tree: tree_map(lambda x: x.cpu(), tree)  # noqa: E731
+    count = None
+    for method, rounds in METHOD_RUNS:
+        fl = FLConfig.make(method=method, **FL_BASE)
+        # warm-up on a throwaway simulator (first launches), which then
+        # gives one profiled round
+        warm = Simulator(task, params0, train, fl, seed=1)
+        warm.run_rounds(1)
+        sim = Recording(task, params0, train, fl, seed=0)
+        sim.record = []
+        draws = [sim._draw_cohort_sel() for _ in range(rounds)]
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        diags = sim.run_rounds(rounds, draws=draws)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / rounds
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        want = {n: 0 for n in kernels}
+        want["ncv_weighted_sum"] = 0 if method == "fedncv+" else rounds
+        require(launches == want, f"{method}: launches {launches}, want "
+                                  f"{want}")
+        if count is None:
+            count = launches["ncv_weighted_sum"]
+        dev_ms, dev_ops = device_ms_per_round(
+            torch, warm, [warm._draw_cohort_sel()])
+        up = METHOD_BYTES_UP.get(method, 2480240)
+        require(all(float(b) == up for b in diags["bytes_up"]),
+                f"{method}: bytes_up {diags['bytes_up']}, want {up}")
+        pre = sim.evaluate(test)
+        post = sim.evaluate(test, personalize_steps=3)
+        finite = all(bool(torch.isfinite(v).all()) for v in
+                     sim.params.values()) and all(
+            np.isfinite(v).all() for v in diags.values()) and \
+            math.isfinite(pre) and math.isfinite(post)
+        require(finite, f"{method}: non-finite params, diagnostics or "
+                        f"accuracy")
+        say(f"{method} on {card}: {rounds} rounds, sec_per_round={sec:.4f}, "
+            f"device ms a round {dev_ms:.3f} in {dev_ops:.0f} device "
+            f"operations (torch.profiler), launches {launches}, bytes_up="
+            f"{float(diags['bytes_up'][0]):.0f}, agg_norm="
+            f"{[float(x) for x in diags['agg_norm']]}, pre={pre:.4f} "
+            f"post={post:.4f}")
+
+        # the same draws on the CPU, each round from the card's starting
+        # state: the CPU's client section is held to the card's (uploads,
+        # aux and returned client state, up to the near-tie share), then
+        # its server section takes the card's and must land on the card's
+        # params and every state field
+        cpu = Simulator(task, params0, train, fl, seed=0, device="cpu")
+        margin, n_off, n_vals = 0.0, 0, 0
+        for i, (p_card, st_card, pend_card) in enumerate(sim.record):
+            cpu.params, cpu._state = to_cpu(p_card), to_cpu(dict(st_card))
+            pend = cpu._client_section_local(cpu.params, cpu._state,
+                                             draws[i])
+            for part in ("grads", "aux", "cstates"):
+                off, nv = off_tolerance(torch, pend_card[part], pend[part])
+                n_off, n_vals = n_off + off, n_vals + nv
+                require(off <= MAX_OFF_SHARE * nv,
+                        f"{method} round {i} {part}: {off} of {nv} values "
+                        f"off the tolerance")
+            pend = {k: to_cpu(v) for k, v in pend_card.items()}
+            cpu.params, cpu._state, cdiag = cpu._server_section(
+                cpu.params, cpu._state, pend, i + 1)
+            after = sim.record[i + 1] if i + 1 < len(sim.record) else (
+                sim.params, sim._state)
+            require(set(after[1]) == set(cpu._state),
+                    f"{method}: state fields {sorted(after[1])} on the "
+                    f"card, {sorted(cpu._state)} on the CPU")
+            margin = max(margin, margin_of(after[0], cpu.params),
+                         margin_of(after[1], cpu._state))
+            np.testing.assert_allclose(diags["agg_norm"][i],
+                                       float(cdiag["agg_norm"]), rtol=1e-3)
+            require(float(cdiag["bytes_up"]) == float(diags["bytes_up"][i]),
+                    f"{method}: bytes_up differs from the CPU replay")
+        require(margin <= 1.0, f"{method}: card vs CPU replay margin "
+                               f"{margin:.4f} > 1")
+        cpre = cpu.evaluate(test)
+        require(abs(cpre - pre) <= 1e-2,
+                f"{method}: pre-test {pre} on the card, {cpre} on the CPU")
+        say(f"{method}: card vs CPU replay, round by round from the card's "
+            f"state: params and state {sorted(cpu._state)} margin "
+            f"{margin:.4f} (tol rtol {PARAM_RTOL} atol {PARAM_ATOL}: margin "
+            f"<= 1), client values off the tolerance {n_off} of {n_vals}, "
+            f"pre {pre:.4f} vs {cpre:.4f} (tol 1e-2), agg_norm rtol 1e-3, "
+            f"bytes_up equal")
+    return count
 
 
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
@@ -1297,6 +1456,8 @@ def main() -> int:
                    rank_band_mean=R.rank_band_mean)
     for name, n in wire_slice_phase(torch, np, kernels, card, world).items():
         counts.setdefault(name, n)      # the main path's own count first
+    counts.setdefault("ncv_weighted_sum", methods_slice_phase(
+        torch, np, kernels, card, world))
     phase_s["fl slice"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     del world

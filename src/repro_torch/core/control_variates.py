@@ -6,10 +6,14 @@ Eq. 10-12 the server-level networked aggregation over the sampled cohort,
 Algorithm 1 line 12 the per-client alpha adaptation.
 
 Two implementations of every quantity, as in the reference
-(`src/repro/core/control_variates.py`): naive oracles that materialize the
-leave-one-out baselines as written (`loo_baselines`, `rloo_reshape`,
-`networked_aggregate_stacked`; used by the tests), and the reduced forms
-over the flat substrate that run on the main path
+(`src/repro/core/control_variates.py`): the tree forms, which materialize
+the leave-one-out baselines as written (`loo_baselines`, `rloo_reshape`,
+`server_loo_baselines`) or reduce them over a tree or a list of client
+trees (`client_stats_from_stack`, `client_message`,
+`server_loo_from_mean`, `networked_aggregate`,
+`networked_aggregate_stacked`), plain tensor code that the tests and the
+variance studies use; and the reduced forms over the flat substrate that
+run on the main path
 (`client_pass_flat` -> the `rloo_combine` kernel,
 `networked_aggregate_flat` -> the `ncv_weighted_sum` kernel), using
 
@@ -28,6 +32,7 @@ import torch
 
 from repro_torch.kernels.rloo.rloo import ncv_aggregate, rloo_combine
 from repro_torch.utils.tree_math import (ravel_stack, tree_leaves, tree_map,
+                                         tree_mean, tree_norm_sq, tree_scale,
                                          unravel, unravel_stack)
 
 
@@ -63,6 +68,21 @@ class ClientCVStats(NamedTuple):
     k: torch.Tensor
     mean_norm_sq: torch.Tensor
     sum_norm_sq: torch.Tensor
+
+
+def client_stats_from_stack(g_stack) -> ClientCVStats:
+    """ClientCVStats of one client by one pass over its stacked gradients
+    (leaves (K, ...))."""
+    gbar = tree_mean(g_stack, axis=0)
+    leaves = tree_leaves(g_stack)
+    s2 = torch.sum(torch.stack([torch.sum(x.float() ** 2) for x in leaves]))
+    return ClientCVStats(gbar, torch.tensor(float(leaves[0].shape[0])),
+                         tree_norm_sq(gbar), s2)
+
+
+def client_message(stats: ClientCVStats, alpha):
+    """The upload mean_i (g_i - alpha c_{D\\i}) = (1 - alpha) gbar."""
+    return tree_scale(stats.mean_grad, 1.0 - alpha)
 
 
 def client_pass_flat(g_stack, alpha, *, want_reshaped: bool = False):
@@ -123,6 +143,48 @@ def alpha_descent_update(alpha, stats: ClientCVStats, lr, alpha_max=1.0):
 # ---------------------------------------------------------------------------
 # Server level: RLOO over the participating clients (Eq. 10-12)
 # ---------------------------------------------------------------------------
+
+def server_loo_baselines(client_grads, n_samples):
+    """Naive c_{V\\u} = sum_{v != u} n_v / (n - n_u) g_v (Eq. 10) for a
+    list of client trees; returns a list of trees."""
+    n_samples = torch.as_tensor(n_samples, dtype=torch.float32)
+    n = torch.sum(n_samples)
+    out = []
+    for u in range(len(client_grads)):
+        acc = None
+        for v, g_v in enumerate(client_grads):
+            if v == u:
+                continue
+            term = tree_scale(g_v, n_samples[v] / (n - n_samples[u]))
+            acc = term if acc is None else tree_map(torch.add, acc, term)
+        out.append(acc)
+    return out
+
+
+def server_loo_from_mean(gbar_w, g_u, n_u, n):
+    """Reduced c_{V\\u} = (n gbar_w - n_u g_u) / (n - n_u), with gbar_w =
+    sum_v (n_v / n) g_v the one weighted reduction."""
+    scale = 1.0 / (n - n_u)
+    return tree_map(lambda m, g: (n * m - n_u * g) * scale, gbar_w, g_u)
+
+
+def networked_aggregate(client_grads, n_samples, beta=1.0):
+    """Eq. 10-12 over a list of client trees:
+    g = sum_u p_u (g_u - beta c_{V\\u}), p_u = n_u / n."""
+    n_samples = torch.as_tensor(n_samples, dtype=torch.float32)
+    n = torch.sum(n_samples)
+    p = n_samples / n
+    gbar_w = None
+    for w, g in zip(p, client_grads):
+        term = tree_scale(g, w)
+        gbar_w = term if gbar_w is None else tree_map(torch.add, gbar_w, term)
+    agg = None
+    for u, g_u in enumerate(client_grads):
+        c_u = server_loo_from_mean(gbar_w, g_u, n_samples[u], n)
+        term = tree_scale(tree_map(lambda g, c: g - beta * c, g_u, c_u), p[u])
+        agg = term if agg is None else tree_map(torch.add, agg, term)
+    return agg
+
 
 def networked_aggregate_stacked(g_stack, n_samples, beta=1.0):
     """g = sum_u p_u (g_u - beta c_{V\\u}) over leaves stacked on axis 0,

@@ -8,7 +8,9 @@ with the reference's error types (`src/repro/fed/api.py`): an unknown
 name raises KeyError, an option no chosen strategy reads raises
 TypeError, a bad value raises ValueError.
 
-Ported so far: the methods `fedavg` and `fedncv`, the `uniform` sampler,
+Ported so far: all nine methods the reference registers (`fedavg`,
+`fedncv`, `fedncv+`, `fedprox`, `scaffold`, `fedper`, `fedrep`, `pfedsim`,
+`fedglomo`), the `uniform` sampler,
 the aggregators `mean`, `trimmed_mean`, `median` and `norm_clip`, the
 codecs `identity`, `bf16`, `int8` and `int4`, fault model `none`, tracker
 `none` and store `device`.  A name the reference has but the port does not
@@ -26,7 +28,8 @@ from repro_torch.core import control_variates as cv
 from repro_torch.fed import aggregators
 from repro_torch.fed import methods as M
 from repro_torch.fed import sampling
-from repro_torch.utils.tree_math import ravel_stack, tree_map
+from repro_torch.utils.tree_math import (ravel_stack, tree_axpy, tree_leaves,
+                                         tree_map, tree_zeros_like)
 
 
 class MethodCtx(tp.NamedTuple):
@@ -38,8 +41,15 @@ class MethodCtx(tp.NamedTuple):
 class RoundCtx(tp.NamedTuple):
     """Everything a server update may consume: static config, the 1-based
     round number `r`, the cohort indices `idx`, per-client sample counts
-    `sizes` and the stacked scalar diagnostics `aux` every client
-    uploaded."""
+    `sizes` and the stacked diagnostics `aux` every client uploaded.
+
+    `grads` is None unless the method sets `needs_dense_grads`; it is then
+    the dense stacked upload tree (decoded from the wire once).  `weights`
+    are the Eq. 10-12 effective counts the aggregation ran with (`sizes`
+    under the uniform sampler).  `invp`, a non-uniform sampler's
+    inverse-probability factors 1 / (M q_u), and `alive`, a fault model's
+    (cohort,) 0/1 survival mask, are None under the uniform sampler with no
+    faults, the only ones ported."""
     task: M.Task
     mc: M.MethodConfig
     fl: "FLConfig"
@@ -47,6 +57,10 @@ class RoundCtx(tp.NamedTuple):
     idx: tp.Any
     sizes: tp.Any
     aux: tp.Any
+    grads: tp.Any = None
+    weights: tp.Any = None
+    invp: tp.Any = None
+    alive: tp.Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,12 +74,18 @@ class StateField:
     cstate_key : key under which clients see it; None keeps it server-only.
     scatter    : per_client only: write the client-returned rows back at
                  the cohort indices after the round.
+    federated_slice : optional (params, task, mc) -> 0/1 mask tree (the
+                 params' structure) marking the leaves the federated
+                 averaging covers; the simulator masks every upload before
+                 the codec and the aggregate after a lossy one.  Fields
+                 compose by product (`federated_mask`).
     """
     name: str
     per_client: bool
     init: tp.Callable
     cstate_key: str | None = None
     scatter: bool = False
+    federated_slice: tp.Callable | None = None
 
 
 def sgd_server(ctx: RoundCtx, params, agg, state):
@@ -84,6 +104,9 @@ class FedMethod:
     server_update: tp.Callable = sgd_server   # (ctx, params, agg, state)
     state_fields: tp.Any = ()       # tuple[StateField] | (task, mc) -> tuple
     beta: tp.Callable = staticmethod(lambda mc: 0.0)
+    personal: bool = False          # evaluation overlays per-client heads
+    needs_dense_grads: bool = False  # server consumes per-client uploads
+    cohort_state_update: tp.Callable | None = None  # (ctx, cstates) -> cstates
     options: tuple = ()             # MethodConfig fields this method reads
     validate: tp.Callable | None = None             # (mc) -> None, raises
     description: str = ""
@@ -102,8 +125,6 @@ _REGISTRY: dict[str, FedMethod] = {}
 
 # names the reference registers that the port does not have yet
 _NOT_PORTED = {
-    "method": ("fedglomo", "fedncv+", "fedper", "fedprox", "fedrep",
-               "pfedsim", "scaffold"),
     "fault": ("byzantine", "dropout", "external", "markov", "straggler"),
     "tracker": ("composite", "csv", "jsonl", "memory", "stdout"),
     "store": ("host",),
@@ -128,14 +149,20 @@ def register_method(method: FedMethod, *, overwrite: bool = False) -> FedMethod:
 def get_method(name: str) -> FedMethod:
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in _NOT_PORTED["method"]:
-        raise not_ported("federated method", name, _REGISTRY)
     raise KeyError(f"unknown federated method '{name}'; registered: "
                    f"{sorted(_REGISTRY)}")
 
 
 def registered_methods() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
+
+
+def registered_trackers() -> tuple[str, ...]:
+    return _PORTED["tracker"]
+
+
+def registered_stores() -> tuple[str, ...]:
+    return _PORTED["store"]
 
 
 def _check_name(kind: str, name: str):
@@ -195,6 +222,39 @@ def scatter_cohort_states(fields: tuple[StateField, ...], state, idx,
             new[f.name] = tree_map(put, state[f.name],
                                    cstates_new[f.cstate_key])
     return new
+
+
+def federated_mask(fields: tuple[StateField, ...], params, task, mc):
+    """The product of every declaring field's `federated_slice` mask (a
+    0/1 f32 tree matching `params`), or None when no field declares one."""
+    mask = None
+    for f in fields:
+        if f.federated_slice is None:
+            continue
+        m = tree_map(lambda x: torch.as_tensor(x, dtype=torch.float32),
+                     f.federated_slice(params, task, mc))
+        mask = m if mask is None else tree_map(torch.mul, mask, m)
+    return mask
+
+
+def with_federated_slice(client_fn, mask):
+    """Mask the upload (leaves (C, ...)) before the codec sees it, so the
+    masked-out leaves upload exact zeros; `apply_federated_mask` is the
+    server-side half."""
+    def fn(ctx, params, cstate, batches, key):
+        out = client_fn(ctx, params, cstate, batches, key)
+        return out._replace(grad=tree_map(lambda g, m: g * m.to(g.dtype),
+                                          out.grad, mask))
+    return fn
+
+
+def apply_federated_mask(agg_tree, mask):
+    """Hard-mask the decoded aggregate after a lossy codec and recompute its
+    norm: the masked parameters get exactly zero update.  Returns (masked
+    tree, ||masked||^2)."""
+    tree = tree_map(lambda g, m: g * m.to(g.dtype), agg_tree, mask)
+    nrm = sum(torch.sum(x.float() ** 2) for x in tree_leaves(tree))
+    return tree, nrm
 
 
 def with_codec(client_fn, codec):
@@ -283,6 +343,11 @@ class FLConfig:
                               self.sampler_opts)
         agg = aggregators.get_aggregator(self.aggregator)
         aggregators.resolve_opts(agg, self.agg_opts)
+        if method.needs_dense_grads and self.aggregator != "mean":
+            raise ValueError(
+                f"method '{self.method}' consumes the dense per-client "
+                f"uploads itself (needs_dense_grads) — the "
+                f"'{self.aggregator}' aggregator would be silently ignored")
         if method.beta(self.mc) != 0.0 and not agg.honors_beta:
             raise ValueError(
                 f"aggregator '{self.aggregator}' ignores the server-side "
@@ -382,6 +447,48 @@ register_method(FedMethod(
 ))
 
 
+def _fedprox_validate(mc: M.MethodConfig):
+    if mc.prox_mu < 0:
+        raise ValueError(f"prox_mu must be >= 0, got {mc.prox_mu}")
+
+
+register_method(FedMethod(
+    name="fedprox",
+    client_update=_client(M.fedprox_client),
+    options=("prox_mu",),
+    validate=_fedprox_validate,
+    description="FedAvg with a proximal term mu/2 ||p - p_t||^2",
+))
+
+
+def _scaffold_server(ctx: RoundCtx, params, agg, state):
+    params, state, diag = sgd_server(ctx, params, agg, state)
+    # the c_global refresh is a sampled estimate of the population-mean
+    # drift: under a reweighting sampler each term carries its 1 / (M q_u)
+    dc = ctx.aux["delta_c"]
+    if ctx.invp is not None:
+        dc = tree_map(lambda d: d * ctx.invp.reshape(
+            (-1,) + (1,) * (d.dim() - 1)), dc)
+    c_delta = tree_map(lambda d: torch.mean(d, 0), dc)
+    state = dict(state, c_global=tree_axpy(
+        ctx.fl.cohort / ctx.fl.n_clients, c_delta, state["c_global"]))
+    return params, state, diag
+
+
+register_method(FedMethod(
+    name="scaffold",
+    client_update=_client(M.scaffold_client),
+    server_update=_scaffold_server,
+    state_fields=(
+        StateField("c_u", per_client=True, cstate_key="c_u", scatter=True,
+                   init=lambda p, t, mc: tree_zeros_like(p)),
+        StateField("c_global", per_client=False, cstate_key="c_global",
+                   init=lambda p, t, mc: tree_zeros_like(p)),
+    ),
+    description="local gradients corrected by (c - c_u); client keeps c_u",
+))
+
+
 def _fedncv_server(ctx: RoundCtx, params, agg, state):
     params, state, diag = sgd_server(ctx, params, agg, state)
     mc, aux = ctx.mc, ctx.aux
@@ -421,4 +528,124 @@ register_method(FedMethod(
     options=("ncv_alpha0", "ncv_alpha_lr", "ncv_beta", "ncv_alpha_mode"),
     validate=_fedncv_validate,
     description="the paper: dual RLOO control variates (Algorithm 1)",
+))
+
+
+def _fedncv_plus_server(ctx: RoundCtx, params, agg, state):
+    del agg
+    params, sstate, diag = M.fedncv_plus_server(
+        ctx.mc, ctx.task, params, ctx.grads, ctx.sizes, ctx.idx,
+        dict(h=state["h"], h_sum=state["h_sum"]), ctx.fl.server_lr,
+        ctx.fl.n_clients, invp=ctx.invp, alive=ctx.alive)
+    return params, dict(state, h=sstate["h"], h_sum=sstate["h_sum"]), diag
+
+
+register_method(FedMethod(
+    name="fedncv+",
+    # plain gradients; the server does the work
+    client_update=_client(M.fedavg_client),
+    server_update=_fedncv_plus_server,
+    state_fields=(
+        # server-only (cstate_key=None): the stale gradient table h_u and
+        # its running sum never leave the server
+        StateField("h", per_client=True,
+                   init=lambda p, t, mc: tree_zeros_like(p)),
+        StateField("h_sum", per_client=False,
+                   init=lambda p, t, mc: tree_zeros_like(p)),
+    ),
+    needs_dense_grads=True,
+    description="beyond-paper: SAGA-style stale per-client server CVs",
+))
+
+
+def _personal_fields(task: M.Task, mc: M.MethodConfig):
+    # the head leaves are personal, so the federated averaging covers the
+    # body only; the clients already upload zero head gradients, so the
+    # slice changes nothing under an exact codec and keeps it so under a
+    # lossy one
+    return (StateField(
+        "personal", per_client=True, cstate_key="personal", scatter=True,
+        init=lambda p, t, mc: {k: p[k] for k in t.head_keys},
+        federated_slice=lambda p, t, mc: M._body_mask(t, p)),)
+
+
+register_method(FedMethod(
+    name="fedrep",
+    client_update=_client(M.fedrep_client),
+    state_fields=_personal_fields,
+    personal=True,
+    options=("head_local_steps",),
+    description="personal head fit first (body frozen), then shared body",
+))
+
+register_method(FedMethod(
+    name="fedper",
+    client_update=_client(M.fedper_client),
+    state_fields=_personal_fields,
+    personal=True,
+    description="body+head trained locally; body aggregated, head personal",
+))
+
+
+def _pfedsim_cohort_update(ctx: RoundCtx, cstates_new):
+    # every tenth round (r is 1-based) the cohort's heads are mixed
+    if ctx.r % 10:
+        return cstates_new
+    return dict(cstates_new, personal=M.pfedsim_server_mix(
+        ctx.aux["head"], cstates_new["personal"]))
+
+
+register_method(FedMethod(
+    name="pfedsim",
+    client_update=_client(M.pfedsim_client),
+    state_fields=_personal_fields,
+    personal=True,
+    cohort_state_update=_pfedsim_cohort_update,
+    description="FedAvg body + similarity-mixed personal classifiers",
+))
+
+
+# ---------------------------------------------------------------------------
+# fedglomo: global + local momentum (FedGLOMO-style, Das et al.): each client
+# smooths its upload with a heavy-ball buffer carried across the rounds it
+# joins, and the server applies the aggregate through a global momentum
+# ---------------------------------------------------------------------------
+
+def fedglomo_client(ctx: MethodCtx, params, cstate, batches, key):
+    out = M.fedavg_client(ctx.mc, ctx.task, params, cstate, batches, key)
+    m_new = tree_map(lambda m_, g: ctx.mc.glomo_beta_local * m_ + g,
+                     cstate["m"], out.grad)
+    return out._replace(grad=m_new, cstate=dict(out.cstate, m=m_new))
+
+
+def _fedglomo_server(ctx: RoundCtx, params, agg, state):
+    tree, norm = agg
+    mc, lr = ctx.mc, ctx.fl.server_lr
+    v = tree_map(lambda vi, g: mc.glomo_beta_global * vi
+                 + (1.0 - mc.glomo_beta_global) * g.to(vi.dtype),
+                 state["v"], tree)
+    params = tree_map(lambda p, vi: p - lr * vi.to(p.dtype), params, v)
+    return params, dict(state, v=v), dict(agg_norm=norm)
+
+
+def _fedglomo_validate(mc: M.MethodConfig):
+    for nm, b in (("glomo_beta_global", mc.glomo_beta_global),
+                  ("glomo_beta_local", mc.glomo_beta_local)):
+        if not 0.0 <= b < 1.0:
+            raise ValueError(f"{nm} must be in [0, 1), got {b}")
+
+
+register_method(FedMethod(
+    name="fedglomo",
+    client_update=fedglomo_client,
+    server_update=_fedglomo_server,
+    state_fields=(
+        StateField("m", per_client=True, cstate_key="m", scatter=True,
+                   init=lambda p, t, mc: tree_zeros_like(p)),
+        StateField("v", per_client=False,
+                   init=lambda p, t, mc: tree_zeros_like(p)),
+    ),
+    options=("glomo_beta_global", "glomo_beta_local"),
+    validate=_fedglomo_validate,
+    description="global + local momentum (FedGLOMO-style)",
 ))

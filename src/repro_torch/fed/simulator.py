@@ -13,11 +13,16 @@ Each round:
                           (FedNCV: two `rloo_combine` launches at
                           local_epochs=2), then the codec's encode of the
                           (C, N) upload stack (`fl.codec`)
-  `_server_section`       the aggregator (`fl.aggregator`): Eq. 10-12 via
+  `_server_section`       the method's cohort-state update (pFedSim's
+                          head mixing every tenth round), the write-back
+                          of the per-client state, the aggregator
+                          (`fl.aggregator`): Eq. 10-12 via
                           `ncv_weighted_sum`, or straight off the int8 /
                           int4 wire via `ncv_weighted_sum_q[4]`, or the
-                          robust reductions; then the method's server
-                          update (FedNCV: alpha adaptation)
+                          robust reductions (skipped for a method that
+                          reduces the dense uploads itself, FedNCV+); then
+                          the method's server update (FedNCV: alpha
+                          adaptation)
 
 Draw-injection seam: `run_round(draws=(idx, sel, u))` and
 `run_rounds(n, draws=[...])` take the cohort `idx` (cohort,), the
@@ -48,7 +53,8 @@ from repro_torch.fed import methods as M
 from repro_torch.fed import sampling
 from repro_torch.fed.api import FLConfig  # noqa: F401  (re-export)
 from repro_torch.utils.device import deterministic_f32, resolve_device
-from repro_torch.utils.tree_math import flat_spec, tree_bytes, tree_map
+from repro_torch.utils.tree_math import (flat_spec, tree_bytes, tree_map,
+                                         unravel)
 
 
 def _tensor(x, dtype, device=None):
@@ -80,9 +86,16 @@ class Simulator:
         self.codec = comm.get_codec(fl.codec, n=self._grad_spec.n,
                                     **fl.codec_opts)
         self._ugen = torch.Generator(device=dev).manual_seed(int(seed))
+        # partial averaging: the fields' combined federated_slice mask
+        # (personal heads), or None; uploads are masked before the codec
+        self._fed_mask = api.federated_mask(self._fields, self.params, task,
+                                            fl.mc)
+        self._client_update = self.method.client_update
+        if self._fed_mask is not None:
+            self._client_update = api.with_federated_slice(
+                self._client_update, self._fed_mask)
         # non-identity codecs compress the upload at the end of the client
         # fn; the server aggregates straight off the wire
-        self._client_update = self.method.client_update
         if self.codec.name != "identity":
             self._client_update = api.with_codec(self._client_update,
                                                  self.codec)
@@ -95,7 +108,8 @@ class Simulator:
         self.round_idx = 0
 
     def __getattr__(self, name):
-        # state-field names double as read-only attributes (sim.alphas)
+        # state-field names double as read-only attributes (sim.alphas,
+        # sim.c_global, sim.personal, sim.h, ...)
         state = self.__dict__.get("_state")
         if state is not None and name in state:
             return state[name]
@@ -161,18 +175,34 @@ class Simulator:
     @deterministic_f32()
     def _server_section(self, params, state, pending, r):
         fl, method = self.fl, self.method
-        idx, aux = pending["idx"], pending["aux"]
-        ctx = api.RoundCtx(task=self.task, mc=fl.mc, fl=fl, r=r, idx=idx,
-                           sizes=pending["sizes"], aux=aux)
-        new_state = api.scatter_cohort_states(self._fields, dict(state), idx,
-                                              pending["cstates"])
+        idx, aux, grads = pending["idx"], pending["aux"], pending["grads"]
+        codec = None if self.codec.name == "identity" else self.codec
         # the uniform sampler does not reweight: the Eq. 10-12 effective
         # counts are the shard sizes themselves
-        codec = None if self.codec.name == "identity" else self.codec
-        agg = aggregators.aggregate_stack(self.agg, self._agg_opts,
-                                          pending["grads"], pending["sizes"],
-                                          method.beta(fl.mc), codec,
-                                          self._grad_spec)
+        sizes = pending["sizes"]
+        # the dense per-client uploads, decoded once, only if the method
+        # reduces them itself
+        dense = None
+        if method.needs_dense_grads:
+            dense = grads if codec is None else unravel(codec.decode(grads),
+                                                        self._grad_spec)
+        ctx = api.RoundCtx(task=self.task, mc=fl.mc, fl=fl, r=r, idx=idx,
+                           sizes=sizes, aux=aux, grads=dense, weights=sizes)
+        cstates = pending["cstates"]
+        if method.cohort_state_update is not None:
+            cstates = method.cohort_state_update(ctx, cstates)
+        new_state = api.scatter_cohort_states(self._fields, dict(state), idx,
+                                              cstates)
+        agg = None
+        if not method.needs_dense_grads:
+            agg = aggregators.aggregate_stack(self.agg, self._agg_opts,
+                                              grads, sizes,
+                                              method.beta(fl.mc), codec,
+                                              self._grad_spec)
+            if self._fed_mask is not None and codec is not None:
+                # a lossy wire may leak into the masked leaves: they get
+                # exactly zero update (the identity wire is masked already)
+                agg = api.apply_federated_mask(agg[0], self._fed_mask)
         params, new_state, diag = method.server_update(ctx, params, agg,
                                                        new_state)
         diag = {k: v for k, v in diag.items()
@@ -216,21 +246,26 @@ class Simulator:
     # ------------------------------------------------------------------
     # evaluation: padded, chunked, one vmapped pass per chunk
     # ------------------------------------------------------------------
-    def _eval_core(self, params, feats, labels_eval, sizes,
+    def _eval_core(self, params, personal, feats, labels_eval, sizes,
                    personalize_steps: int):
+        """`personal`: the chunk's personal heads (leaves (chunk, ...)),
+        overlaid on `params` for each client, or None."""
         task, lr = self.task, self.fl.mc.local_lr
         n_max = labels_eval.shape[1]
         p = params
-        if personalize_steps:
+        per_client = personal is not None or personalize_steps > 0
+        if personal is not None:
+            p = M._split_update(task, params, personal)
+        elif personalize_steps:
             p = M._per_client(params, sizes.shape[0])
+        if personalize_steps:
             step = vmap(grad(task.loss), in_dims=(0, 0))
             # personalization runs on the cyclically padded batch: each real
             # sample appears floor/ceil(n_max/size) times
             for _ in range(personalize_steps):
                 g = step(p, feats)
                 p = tree_map(lambda pi, gi: pi - lr * gi, p, g)
-        acc = vmap(task.accuracy,
-                   in_dims=(0 if personalize_steps else None, 0))(
+        acc = vmap(task.accuracy, in_dims=(0 if per_client else None, 0))(
             p, dict(feats, labels=labels_eval))
         # padded positions carry label -1 (argmax never matches), so the
         # padded-mean accuracy rescales exactly to the true shard mean
@@ -241,6 +276,8 @@ class Simulator:
     @deterministic_f32()
     def evaluate(self, eval_data, personalize_steps=0, chunk: int = 32):
         """Mean per-client accuracy; personalize_steps > 0 == "test after".
+        A personalizing method (`personal`) evaluates each client with its
+        own head, so the eval clients are the training clients.
 
         Each client's shard is cyclically padded to the global n_max, and
         padded slots are excluded from the accuracy by the -1-label mask and
@@ -261,8 +298,10 @@ class Simulator:
             feats = {k: v[sel] for k, v in data.items()}
             labels_eval = torch.where(ar < sizes[:, None], feats["labels"],
                                       torch.full_like(feats["labels"], -1))
-            s, v = self._eval_core(self.params, feats, labels_eval, sizes,
-                                   personalize_steps)
+            personal = tree_map(lambda x: x[lo:hi], self.personal) \
+                if self.method.personal else None
+            s, v = self._eval_core(self.params, personal, feats, labels_eval,
+                                   sizes, personalize_steps)
             acc_sum += float(s)
             n_valid += float(v)
         return acc_sum / max(n_valid, 1.0)

@@ -1,4 +1,5 @@
-"""LeNet-5 — the model the paper's experiments use — on (B, H, W, C) images.
+"""LeNet-5 — the model the paper's experiments use — plus a small MLP; both
+classify (B, H, W, C) images.
 
 Parameters keep the reference's layouts (`src/repro/models/lenet.py`):
 conv weights HWIO over NHWC activations, dense weights (in, out), so the
@@ -17,6 +18,20 @@ The patches are stacked from slices, so `vmap(grad)` batches every
 operation of the pass, its backward too.  On the CPU the convolutions stay
 `F.conv2d` (oneDNN, f32, deterministic), which the CPU parity tests hold
 to the reference.
+
+On the CPU, tanh does not go through `torch.tanh` but through `_CPUTanh`:
+ATen's own vectorized `expm1` and one division, in f64, rounded once to
+f32, which gives the correctly rounded tanh.  `torch.tanh` on a float CPU
+tensor calls MKL's `vmsTanh` (high-accuracy mode) on each OpenMP thread's
+share of the tensor, and in some processes that have imported JAX and
+started its CPU client, one thread's first call returns its whole share
+up to 5.2e-5 from tanh (the high-accuracy mode is within 3.2e-8): the
+process's first forward then took other bits than every later one, up to
+2e-5 from the reference's logits.  `expm1` is not routed to MKL (ATen
+keeps it on its own SLEEF code, the same for every element whatever the
+thread split), so the first call gives the same bits as every later one.
+The backward is torch.tanh's, g (1 - y^2).  On the card `torch.tanh`
+stays.
 """
 from __future__ import annotations
 
@@ -37,6 +52,33 @@ class LeNetConfig:
 
 
 HEAD_KEYS = ("head", "bh")          # personalization split (FedRep/FedPer)
+
+
+class _CPUTanh(torch.autograd.Function):
+    """tanh(x) = sign(x) (1 - e) / (1 + e), e = exp(-2|x|), as
+    -t / (t + 2) with t = expm1(-2|x|) in (-1, 0], in f64 and rounded once
+    to x's dtype: the correctly rounded tanh but in rare double roundings,
+    and t = -1 (no overflow) where tanh saturates."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        d = x.double()
+        t = torch.expm1(-2.0 * d.abs())
+        return torch.copysign(-t / (t + 2.0), d).to(x.dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return g * (1.0 - y * y)
+
+
+def _tanh(x):
+    return torch.tanh(x) if x.is_cuda else _CPUTanh.apply(x)
 
 
 def init(cfg: LeNetConfig, generator: torch.Generator, device="cpu"):
@@ -78,7 +120,7 @@ def _conv(x, w):
 def _conv_pool(x, w, b):
     """NCHW x, HWIO w -> max_pool2x2(tanh(conv(x) + b)), NCHW."""
     y = _conv(x, w) if x.is_cuda else F.conv2d(x, w.permute(3, 2, 0, 1))
-    return F.max_pool2d(torch.tanh(y + b[:, None, None]), 2, 2)
+    return F.max_pool2d(_tanh(y + b[:, None, None]), 2, 2)
 
 
 def forward(cfg: LeNetConfig, params, images):
@@ -86,8 +128,8 @@ def forward(cfg: LeNetConfig, params, images):
     x = _conv_pool(x, params["conv1"], params["b1"])
     x = _conv_pool(x, params["conv2"], params["b2"])
     x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)   # NHWC flatten
-    x = torch.tanh(x @ params["fc1"] + params["bf1"])
-    x = torch.tanh(x @ params["fc2"] + params["bf2"])
+    x = _tanh(x @ params["fc1"] + params["bf1"])
+    x = _tanh(x @ params["fc2"] + params["bf2"])
     return x @ params["head"] + params["bh"]
 
 
@@ -99,3 +141,39 @@ def loss_fn(cfg: LeNetConfig, params, batch):
 def accuracy(cfg: LeNetConfig, params, batch):
     logits = forward(cfg, params, batch["images"])
     return torch.mean((torch.argmax(logits, -1) == batch["labels"]).float())
+
+
+# ----------------------------- tiny MLP ------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MLPConfig:
+    n_classes: int = 10
+    in_dim: int = 64
+    hidden: int = 128
+
+
+def init_mlp(cfg: MLPConfig, generator: torch.Generator, device="cpu"):
+    """Random MLP parameters from `generator` (scaled normal, zero biases),
+    in the reference's (in, out) layouts."""
+    def normal(shape):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32)
+        return (w / math.sqrt(shape[0])).to(device)
+
+    z = lambda n: torch.zeros((n,), dtype=torch.float32, device=device)
+    return {
+        "w1": normal((cfg.in_dim, cfg.hidden)),
+        "w2": normal((cfg.hidden, cfg.hidden)),
+        "head": normal((cfg.hidden, cfg.n_classes)),
+        "b1": z(cfg.hidden), "b2": z(cfg.hidden), "bh": z(cfg.n_classes),
+    }
+
+
+def forward_mlp(cfg: MLPConfig, params, x):
+    x = torch.relu(x @ params["w1"] + params["b1"])
+    x = torch.relu(x @ params["w2"] + params["b2"])
+    return x @ params["head"] + params["bh"]
+
+
+def loss_mlp(cfg: MLPConfig, params, batch):
+    return softmax_xent(forward_mlp(cfg, params, batch["images"]),
+                        batch["labels"])

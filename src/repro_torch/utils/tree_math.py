@@ -40,6 +40,10 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_sub(a, b):
+    return tree_map(torch.subtract, a, b)
+
+
 def tree_scale(a, s):
     return tree_map(lambda x: x * s, a)
 
@@ -47,6 +51,21 @@ def tree_scale(a, s):
 def tree_axpy(s, x, y):
     """y + s * x (like BLAS axpy)."""
     return tree_map(lambda xi, yi: yi + s * xi, x, y)
+
+
+def tree_zeros_like(a):
+    return tree_map(torch.zeros_like, a)
+
+
+def tree_dot(a, b):
+    """Global inner product <a, b> over all leaves, accumulated in f32."""
+    parts = [torch.sum(x.float() * y.float())
+             for x, y in zip(tree_leaves(a), tree_leaves(b))]
+    return torch.sum(torch.stack(parts)) if parts else torch.tensor(0.0)
+
+
+def tree_norm_sq(a):
+    return tree_dot(a, a)
 
 
 def tree_mean(tree, axis=0):

@@ -374,6 +374,43 @@ def test_wire_and_robust_rounds_launch_their_kernels(cuda, kw, kernel):
     assert all(bool(torch.isfinite(v).all()) for v in sim.params.values())
 
 
+@pytest.mark.parametrize("method", ["fedprox", "scaffold", "fedncv+",
+                                    "fedper", "fedrep", "pfedsim",
+                                    "fedglomo"])
+def test_method_rounds_launch_their_kernel_and_match_cpu(cuda, method):
+    """Two rounds of each of the other methods: one `ncv_weighted_sum` a
+    round (none for fedncv+, whose server reduces the dense uploads
+    itself), no `rloo_combine`; params and state within the CPU run's
+    tolerance."""
+    spec, train, test = federated_splits("cifar10", n_clients=6, alpha=0.1,
+                                         seed=0, scale=0.02)
+    cfg = lenet.LeNetConfig()
+    task = Task(loss=lambda p, b: lenet.loss_fn(cfg, p, b),
+                accuracy=lambda p, b: lenet.accuracy(cfg, p, b),
+                head_keys=lenet.HEAD_KEYS)
+    fl = FLConfig.make(method=method, n_clients=6, cohort=3, k_micro=3,
+                       micro_batch=4, server_lr=0.5, local_lr=0.05,
+                       local_epochs=2)
+    params = lenet.init(cfg, torch.Generator().manual_seed(0))
+    sim = Simulator(task, params, train, fl, seed=0)
+    draws = [sim._draw_cohort_sel() for _ in range(2)]
+    r0, w0 = K.rloo_combine.launches, K.ncv_weighted_sum.launches
+    diags = sim.run_rounds(2, draws=draws)
+    assert K.ncv_weighted_sum.launches - w0 == (0 if method == "fedncv+"
+                                                else 2)
+    assert K.rloo_combine.launches == r0
+    cpu = Simulator(task, params, train, fl, seed=0, device="cpu")
+    cdiags = cpu.run_rounds(2, draws=draws)
+    for k, v in sim.params.items():
+        torch.testing.assert_close(v.cpu(), cpu.params[k], rtol=1e-4,
+                                   atol=1e-5)
+    for name, tree in sim._state.items():
+        tree_map(lambda a, b: torch.testing.assert_close(
+            a.cpu(), b, rtol=1e-4, atol=1e-5), tree, cpu._state[name])
+    np.testing.assert_array_equal(diags["bytes_up"], cdiags["bytes_up"])
+    assert np.isfinite(sim.evaluate(test, personalize_steps=3))
+
+
 # ----------------------------- LM slice: flash attention, selective scan ----
 
 def _qkv(seed, b, s, h, kv, hd, dtype):

@@ -1,4 +1,5 @@
-"""`repro_torch` and `chip_smoke.py` never import JAX or the JAX package."""
+"""`repro_torch`, `chip_smoke.py` and the port's benchmarks and examples
+never import JAX or the JAX package."""
 import ast
 import pathlib
 import subprocess
@@ -7,7 +8,8 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
-    sorted((ROOT / "benchmarks" / "port").rglob("*.py"))
+    sorted((ROOT / "benchmarks" / "port").rglob("*.py")) + \
+    sorted((ROOT / "examples" / "port").rglob("*.py"))
 
 
 def _imported_roots(path):

@@ -94,3 +94,50 @@ def test_per_microbatch_gradients_match_reference():
     for key in jp:
         np.testing.assert_allclose(g0[key].numpy(), tg[key][0, 0].numpy(),
                                    rtol=RTOL, atol=ATOL)
+
+
+# One fresh process set up as this module is (both packages' `fed`
+# imported, JAX's CPU client started by the reference's init), then the
+# port's first CPU forward against its second on the same tensors.
+_FIRST_CALL = r"""
+import jax, numpy as np, torch
+from repro.fed import methods as _jm
+from repro_torch.fed import methods as _tm
+from repro.models import lenet as jlenet
+from repro_torch.models import lenet as tlenet
+from repro_torch.weights import params_from_jax
+cfg = tlenet.LeNetConfig()
+params = params_from_jax(jax.tree.map(np.asarray, jlenet.init(
+    jlenet.LeNetConfig(), jax.random.PRNGKey(0))))
+images = torch.from_numpy(np.random.default_rng(0).standard_normal(
+    (6, 32, 32, 3)).astype(np.float32))
+a = tlenet.forward(cfg, params, images)
+b = tlenet.forward(cfg, params, images)
+print("EQUAL" if torch.equal(a, b) else
+      f"DIFFER {float((a - b).abs().max()):.3e}")
+"""
+
+
+def test_first_cpu_forward_equals_later_ones_in_fresh_processes():
+    """In some fresh processes that had imported JAX, the first CPU forward
+    took other bits than the second (torch.tanh through MKL's vmsTanh; see
+    the module docstring of `repro_torch.models.lenet`).  Eight processes
+    at once, each must give the same bits twice."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(
+                   [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    procs = [subprocess.Popen([sys.executable, "-c", _FIRST_CALL], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(8)]
+    outs = []
+    for p in procs:
+        out, err = p.communicate(timeout=180)
+        assert p.returncode == 0, err[-2000:]
+        outs.append(out.strip().splitlines()[-1])
+    assert outs == ["EQUAL"] * len(procs), outs

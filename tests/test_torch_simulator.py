@@ -3,12 +3,14 @@
 The port replays the reference's draws through its draw-injection seam:
 for 0-based round i the reference draws with
 `key = fold_in(PRNGKey(seed), i)`, `kd, kk = split(key)` and
-`_draw_cohort_sel(state, kd)`; fedavg and fedncv draw nothing else, and
+`_draw_cohort_sel(state, kd)`; no method draws anything else, and
 the int8 / int4 wire draws its rounding uniforms from `kk` per cohort
 slot (`reference_draws`).
 
-Tolerances and why:
-  params  rtol 1e-4 / atol 1e-5 — three rounds of training compound the
+Every registered method runs 3 rounds (pfedsim 10, so that its round-10
+head mixing is compared too).  Tolerances and why:
+  params and every state field (c_u, c_global, h, h_sum, personal, m, v)
+          rtol 1e-4 / atol 1e-5 — the rounds of training compound the
           f32 summation-order differences of XLA's and PyTorch's CPU
           convolutions (about 1e-7 per step);
   alphas  rtol 1e-5 — one scalar update per round from S1;
@@ -16,7 +18,11 @@ Tolerances and why:
   bytes_up equal — pure accounting;
   wire codes — equal up to rare single steps, round by round (see
           `test_quantized_rounds_match_reference`);
-  evaluate within 1e-2 absolute — an argmax may flip on a near tie.
+  evaluate within 1e-2 absolute — an argmax may flip on a near tie;
+  pfedsim_server_mix and fedncv_plus_server, given the same inputs,
+          rtol 1e-5 / atol 1e-6 — one pass of f32 arithmetic;
+  the federated mask and the masked aggregate equal (products by 0 and 1),
+          the masked norm rtol 1e-6.
 """
 import jax
 import jax.numpy as jnp
@@ -27,9 +33,15 @@ import torch
 from repro.data import federated_splits as j_splits
 from repro.fed import FLConfig as JFLConfig, Simulator as JSimulator
 from repro.fed import Task as JTask
+from repro.fed import api as japi
+from repro.fed import methods as jmethods
+from repro.fed import registered_methods as j_registered_methods
 from repro.models import lenet as jlenet
 from repro_torch.data import federated_splits as t_splits
 from repro_torch.fed import FLConfig, Simulator, Task
+from repro_torch.fed import api as tapi
+from repro_torch.fed import methods as tmethods
+from repro_torch.fed.api import registered_methods
 from repro_torch.kernels.rloo.ref import unpack_int4_ref
 from repro_torch.models import lenet as tlenet
 from repro_torch.weights import params_from_jax
@@ -74,7 +86,42 @@ CASES = {
     "fedncv-1epoch-optimal": ("fedncv", dict(local_epochs=1, ncv_alpha0=0.5,
                                              ncv_beta=1.0,
                                              ncv_alpha_mode="optimal")),
+    "fedprox": ("fedprox", dict(local_epochs=2, prox_mu=0.1)),
+    "scaffold": ("scaffold", dict(local_epochs=2)),
+    "fedncv+": ("fedncv+", dict(local_epochs=2)),
+    "fedper": ("fedper", dict(local_epochs=2)),
+    "fedrep": ("fedrep", dict(local_epochs=1, head_local_steps=2)),
+    "pfedsim": ("pfedsim", dict(local_epochs=2)),
+    "fedglomo": ("fedglomo", dict(local_epochs=2, glomo_beta_local=0.5)),
 }
+# rounds of a case, where it is not ROUNDS: pfedsim mixes heads in round 10
+CASE_ROUNDS = {"pfedsim": 10}
+
+
+def _check_state(tsim, jsim):
+    """Every state field of the port against the reference's."""
+    jstate = jsim._get_state()
+    assert set(tsim._state) == set(jstate)
+    for name, jv in jstate.items():
+        tol = dict(rtol=1e-5) if name == "alphas" else dict(rtol=1e-4,
+                                                             atol=1e-5)
+        for path, leaf in _flat(jv):
+            np.testing.assert_allclose(_get(tsim._state[name], path).numpy(),
+                                       np.asarray(leaf), err_msg=name + path,
+                                       **tol)
+
+
+def _flat(tree, path=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k],
+                                                       f"{path}/{k}")]
+    return [(path, tree)]
+
+
+def _get(tree, path):
+    for k in path.split("/")[1:]:
+        tree = tree[k]
+    return tree
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -86,20 +133,19 @@ def test_rounds_match_reference_with_replayed_draws(world, case):
     tsim = Simulator(world["ttask"], world["tp"], world["ttrain"],
                      FLConfig.make(method=method, **COMMON, **kw),
                      seed=SEED, device="cpu")
+    rounds = CASE_ROUNDS.get(case, ROUNDS)
     draws, jdiags = [], []
-    for i in range(ROUNDS):
+    for i in range(rounds):
         key = jax.random.fold_in(jax.random.PRNGKey(SEED), i)
         kd, _ = jax.random.split(key)
         idx, sel, *_ = jsim._draw_cohort_sel(jsim._get_state(), kd)
         draws.append((np.asarray(idx), np.asarray(sel)))
         jdiags.append(jsim.run_round())
-    tdiags = tsim.run_rounds(ROUNDS, draws=draws)
+    tdiags = tsim.run_rounds(rounds, draws=draws)
     for k, v in jsim.params.items():
         np.testing.assert_allclose(tsim.params[k].numpy(), np.asarray(v),
                                    rtol=1e-4, atol=1e-5, err_msg=k)
-    if method == "fedncv":
-        np.testing.assert_allclose(tsim.alphas.numpy(),
-                                   np.asarray(jsim.alphas), rtol=1e-5)
+    _check_state(tsim, jsim)
     np.testing.assert_allclose(tdiags["agg_norm"],
                                [d["agg_norm"] for d in jdiags], rtol=1e-4)
     np.testing.assert_array_equal(tdiags["bytes_up"],
@@ -110,11 +156,131 @@ def test_rounds_match_reference_with_replayed_draws(world, case):
             <= 1e-2
 
 
-def test_bytes_up_is_the_reference_accounting(world):
-    sim = _toy(world, local_epochs=2, ncv_beta=0.0)
+@pytest.mark.parametrize("method,kw,aux_bytes", [
+    # identity wire: cohort * (4 N + what the method adds to the upload)
+    ("fedncv", dict(ncv_beta=0.0), 16),          # FedNCV's 4 f32 scalars
+    ("scaffold", {}, 4 * 62006),                 # delta_c
+    ("pfedsim", {}, 4 * (84 * 10 + 10)),         # the flattened head
+    ("fedglomo", {}, 0),
+])
+def test_bytes_up_is_the_reference_accounting(world, method, kw, aux_bytes):
+    sim = _toy(world, method=method, local_epochs=2, **kw)
     diag = sim.run_round()
-    # identity wire: cohort * (4 N + FedNCV's 4 f32 scalars)
-    assert diag["bytes_up"] == 3 * (4 * 62006 + 16)
+    assert diag["bytes_up"] == 3 * (4 * 62006 + aux_bytes)
+
+
+def test_registry_matches_reference():
+    assert registered_methods() == j_registered_methods()
+    for m in registered_methods():
+        assert FLConfig.make(method=m, n_clients=6, cohort=3).mc.name == m
+
+
+def _np_tree(tree):
+    return {k: _np_tree(v) if isinstance(v, dict) else np.asarray(v)
+            for k, v in tree.items()}
+
+
+def _assert_trees_close(ttree, jtree, **tol):
+    for path, leaf in _flat(jtree):
+        np.testing.assert_allclose(_get(ttree, path).numpy(),
+                                   np.asarray(leaf), err_msg=path, **tol)
+
+
+def test_pfedsim_server_mix_matches_reference():
+    rng = np.random.default_rng(5)
+    heads = rng.standard_normal((5, 850)).astype(np.float32)
+    personal = {"head": rng.standard_normal((5, 84, 10)).astype(np.float32),
+                "bh": rng.standard_normal((5, 10)).astype(np.float32)}
+    for temp in (5.0, 0.5):
+        want = jmethods.pfedsim_server_mix(jnp.asarray(heads),
+                                           jax.tree.map(jnp.asarray,
+                                                        personal), temp)
+        got = tmethods.pfedsim_server_mix(
+            torch.from_numpy(heads),
+            {k: torch.from_numpy(v) for k, v in personal.items()}, temp)
+        _assert_trees_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_federated_mask_matches_reference(world):
+    """The personal methods' federated slice: the mask, the aggregate's hard
+    mask and its norm, as the reference computes them."""
+    jfields = japi.get_method("fedper").state_spec(world["jtask"], None)
+    tfields = tapi.get_method("fedper").state_spec(world["ttask"], None)
+    jmask = japi.federated_mask(jfields, world["jp"], world["jtask"], None)
+    tmask = tapi.federated_mask(tfields, world["tp"], world["ttask"], None)
+    _assert_trees_close(tmask, jmask, rtol=0, atol=0)
+    assert float(tmask["head"].max()) == 0.0 and float(
+        tmask["conv1"].min()) == 1.0
+    rng = np.random.default_rng(7)
+    agg = {k: rng.standard_normal(v.shape).astype(np.float32)
+           for k, v in world["jp"].items()}
+    jt, jn = japi.apply_federated_mask(jax.tree.map(jnp.asarray, agg), jmask)
+    tt, tn = tapi.apply_federated_mask(
+        {k: torch.from_numpy(v) for k, v in agg.items()}, tmask)
+    _assert_trees_close(tt, jt, rtol=0, atol=0)
+    np.testing.assert_allclose(float(tn), float(jn), rtol=1e-6)
+    assert tapi.federated_mask(
+        tapi.get_method("scaffold").state_spec(world["ttask"], None),
+        world["tp"], world["ttask"], None) is None
+
+
+def test_personal_heads_get_no_update_over_a_lossy_wire(world, monkeypatch):
+    """fedper over the int8 wire: the server hard-masks the decoded
+    aggregate (once a round), and the shared copy of the personal head
+    keeps its bits."""
+    calls = []
+
+    def spy(tree, mask):
+        calls.append(1)
+        return apply(tree, mask)
+
+    apply = tapi.apply_federated_mask
+    monkeypatch.setattr(tapi, "apply_federated_mask", spy)
+    sim = _toy(world, method="fedper", codec="int8", local_epochs=2)
+    head0 = {k: sim.params[k].clone() for k in ("head", "bh")}
+    draws = sim.draw_round()
+    diag = sim.run_round(draws=draws)
+    for k, v in head0.items():
+        assert torch.equal(sim.params[k], v), k
+    # the cohort trained its own heads; the others kept the initial one
+    moved = [not torch.equal(sim.personal["head"][u], head0["head"])
+             for u in range(6)]
+    assert moved == [u in draws[0].tolist() for u in range(6)]
+    assert not torch.equal(sim.params["conv1"], world["tp"]["conv1"])
+    assert np.isfinite(diag["agg_norm"]) and len(calls) == 1
+
+
+@pytest.mark.parametrize("invp,alive", [
+    (None, None),
+    ([1.5, 0.5, 2.0, 1.0], None),
+    ([1.6, 0.0, 2.4, 0.8], [1.0, 0.0, 1.0, 1.0]),   # client 1 dropped
+])
+def test_fedncv_plus_server_matches_reference(invp, alive):
+    rng = np.random.default_rng(6)
+    m_total, c = 7, 4
+    shapes = {"w": (3, 5), "b": (5,)}
+    mk = lambda *lead: {k: rng.standard_normal(lead + s).astype(np.float32)
+                        for k, s in shapes.items()}
+    params, grads, h = mk(), mk(c), mk(m_total)
+    sstate = dict(h=h, h_sum={k: v.sum(0) for k, v in h.items()})
+    idx = np.array([5, 0, 3, 6])
+    sizes = np.array([10.0, 4.0, 7.0, 3.0], np.float32)
+    args = lambda cast, arr: (
+        cast(params), cast(grads), arr(sizes), arr(idx),
+        dict(h=cast(sstate["h"]), h_sum=cast(sstate["h_sum"])), 0.5,
+        m_total, None if invp is None else arr(np.float32(invp)),
+        None if alive is None else arr(np.float32(alive)))
+    jp, js, jd = jmethods.fedncv_plus_server(
+        None, None, *args(lambda t: jax.tree.map(jnp.asarray, t),
+                          jnp.asarray))
+    tp, ts, td = tmethods.fedncv_plus_server(
+        None, None, *args(lambda t: {k: torch.from_numpy(v)
+                                     for k, v in t.items()},
+                          torch.from_numpy))
+    _assert_trees_close(tp, jp, rtol=1e-5, atol=1e-6)
+    _assert_trees_close(ts, js, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(float(td["agg_norm"]), float(jd["agg_norm"]),
+                               rtol=1e-5)
 
 
 def test_run_round_and_run_rounds_agree_bitwise(world):
@@ -157,6 +323,17 @@ def test_own_draws_are_valid_and_seeded(world):
     (dict(method="fedncv", aggregator="median", ncv_beta=1.0), ValueError),
     (dict(method="fedncv", aggregator="trimmed_mean", ncv_beta=0.0,
           agg_opts=dict(trim_frac=0.6)), ValueError),
+    # the other methods' options (tests/test_api.py)
+    (dict(method="fedprox", prox_mu=-1.0), ValueError),
+    (dict(method="fedglomo", glomo_beta_global=1.5), ValueError),
+    (dict(method="fedglomo", glomo_beta_local=-0.1), ValueError),
+    (dict(method="fedncv", glomo_beta_global=0.9), TypeError),
+    (dict(method="fedavg", prox_mu=0.1), TypeError),
+    (dict(method="fedper", head_local_steps=2), TypeError),
+    (dict(method="scaffold", ncv_beta=0.0), TypeError),
+    (dict(method="fedncv+", aggregator="median"), ValueError),
+    (dict(method="fedrep", aggregator="trimmed_mean", prox_mu=0.1),
+     TypeError),
 ])
 def test_flconfig_errors_match_reference(kw, err):
     args = dict(n_clients=6, cohort=3)
@@ -168,7 +345,7 @@ def test_flconfig_errors_match_reference(kw, err):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(method="scaffold"), dict(codec="topk"), dict(sampler="importance"),
+    dict(fault="markov"), dict(codec="topk"), dict(sampler="importance"),
     dict(codec="lowrank"), dict(fault="dropout"),
     dict(tracker="jsonl"),
     dict(store="host"),
