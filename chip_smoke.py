@@ -29,11 +29,16 @@ without the final `ok` line:
                tensor-core kernel's head widths, GQA ratios, masks, short
                and ragged S and batch edges; the scan at falcon-mamba-7b's
                (1, 2048, 131072), the reference's sweep, a batch axis and
-               ragged S.  Then device times (CUDA-graph replay, inputs
-               rotated through more than the 50 MB L2) of the kernel, the
-               plain version and, where one exists, a single PyTorch call
-               computing the same function; the bf16 flash kernel must reach
-               a quarter of its bound at the llama3.2-3b shape.  Beside
+               ragged S; the server kernels (`ncv_weighted_sum`, its int8
+               wire twin, `rank_band_mean`) on the sampler and fault runs'
+               inputs: HT weights that are no integers, zero-weight (dropped)
+               rows, 10x (byzantine) and sign-flipped rows, byzantine and
+               dead rows in one band.  Then device times (CUDA-graph
+               replay, inputs rotated through more than the 50 MB L2) of
+               the kernel, the plain version and, where one exists, a
+               single PyTorch call computing the same function; the bf16
+               flash kernel must reach a quarter of its bound at the
+               llama3.2-3b shape.  Beside
                them, a launch floor (a 1-element `add_` timed the same
                way), and `ncv_weighted_sum` (with `w @ g`), the wire
                kernels and `rank_band_mean` at 16,777,216 columns (codes)
@@ -50,13 +55,24 @@ without the final `ok` line:
                wire, norm_clip); then the other registered methods with
                the reference's default options, 3 rounds each (fedprox,
                scaffold, fedncv+, fedper, fedrep, fedglomo) and 10 of
-               pfedsim (its round-10 head mixing), printing each run's
-               device ms a round (torch.profiler).  Checks the launch
+               pfedsim (its round-10 head mixing); then the samplers and
+               fault models (`FAULT_RUNS`: importance, similarity 5 rounds,
+               dropout with drop_skew, straggler, markov 5 rounds, byzantine
+               scale under mean / trimmed_mean / median, signflip under
+               norm_clip, labelflip over int8, dropout + importance, and the
+               external sampler and fault with host-written tables and one
+               all-dead round, which must be a finite no-op), each run's
+               server kernel also held to its plain version on each round's
+               inputs, and a robustness check (2 of 10 clients at byzantine
+               scale 10: the param step under mean against trimmed_mean),
+               printing each run's device ms a round (torch.profiler).
+               Checks the launch
                counts, `bytes_up`, finiteness, and the parameters against
                a CPU replay of the same draws through the plain versions
                (with the margin, the largest err / (atol + rtol |x|); the
-               wire, robust and method runs round by round from the card's
-               state, with every state field); the fedncv beta = 0 draws
+               wire, robust, method, sampler and fault runs round by round
+               from the card's state and draws, with every state field); the
+               fedncv beta = 0 draws
                run on the card a second time with the process's
                cudnn.allow_tf32 and cudnn.benchmark True and must give the
                same bits.  Then the LM serving
@@ -502,6 +518,80 @@ def wire_kernel_phase(torch, K, R, ref, rref, comm, floor_ms):
     return reports
 
 
+def fault_input_kernel_phase(torch, K, R, ref, rref, comm, reports):
+    """The server kernels on the inputs the sampler and fault runs give
+    them: Horvitz-Thompson weights that are no integers, rows whose weight
+    is exactly 0 (dropped clients), rows 10x the others (byzantine
+    `scale` 10), sign-flipped rows, and byzantine and dead rows in one
+    `rank_band_mean` cohort.  Folds each kernel's largest error into its
+    report."""
+    from repro_torch.kernels.rloo.rloo import ncv_coefficients
+
+    gen = torch.Generator().manual_seed(2)
+
+    def cohort(m, n, dead, byz, flip=()):
+        """(M, N) uploads with the byzantine rows 10x and the flipped rows
+        negated, and the Eq. 10-12 coefficients of sizes x HT factors,
+        0 at the dead rows."""
+        g = torch.randn(m, n, generator=gen)
+        g[list(byz)] *= 10.0
+        g[list(flip)] *= -1.0
+        sizes = torch.randint(20, 400, (m,), generator=gen).float()
+        weights = sizes * (torch.rand(m, generator=gen) * 2.0 + 0.3)
+        weights[list(dead)] = 0.0
+        return g.cuda(), weights, ncv_coefficients(weights, 0.0).cuda()
+
+    def held(name, kern, plain, args, **kw):
+        got, want = kern(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        e = check_scaled(f"{name} agg", got[0], want[0])
+        check_close(f"{name} norm", got[1], want[1], 1e-4, 1e-6)
+        again = kern(*args, **kw)
+        require(torch.equal(got[0], again[0]) and torch.equal(got[1],
+                                                              again[1]),
+                f"{name} is not deterministic")
+        reports[name]["max_abs_err"] = max(reports[name]["max_abs_err"], e)
+        return e
+
+    codec = comm.get_codec("int8", n=62006)
+    for m, n, dead, byz, flip in ((10, 62006, (3, 7), (0, 1), ()),
+                                  (10, 62006, (), (0, 1), (5,)),
+                                  (10, 62006, (1, 2, 4, 6, 8), (0,), ()),
+                                  (40, 62006, (5, 9, 20), (0, 1, 2, 3), (7,)),
+                                  (12, 4097, (11,), (0,), (3, 4))):
+        g, weights, coef = cohort(m, n, dead, byz, flip)
+        e = held("ncv_weighted_sum", K.ncv_weighted_sum,
+                 ref.ncv_weighted_sum_ref, (g, coef))
+        line = (f"M={m} N={n} dead={len(dead)} byzantine x10={len(byz)} "
+                f"sign-flipped={len(flip)} HT weights: ncv_weighted_sum max "
+                f"abs err {e:.3e}")
+        if n == 62006:
+            wire, _ = codec.encode(g, None, torch.rand(
+                codec.uniforms_shape(m), generator=gen).cuda())
+            e = held("ncv_weighted_sum_q", K.ncv_weighted_sum_q,
+                     ref.ncv_weighted_sum_q_ref, (wire["q"], wire["s"], coef),
+                     chunk=codec.chunk)
+            line += f", ncv_weighted_sum_q (int8 wire) {e:.3e}"
+        alive = (weights > 0).float().cuda()
+        m_v = float(alive.sum())
+        k = min(math.floor(0.25 * m_v), math.floor((m_v - 1) / 2))
+        mid = math.floor((m_v - 1) / 2)
+        for lo in (k, mid):
+            lo_t = torch.tensor(float(lo), device="cuda")
+            hi_t = m_v - 1.0 - lo_t
+            e = held("rank_band_mean", R.rank_band_mean,
+                     rref.rank_band_mean_ref, (g, alive, lo_t, hi_t))
+            row, _ = rref.rank_band_mean_rowwise(g, alive, lo_t, hi_t)
+            require(torch.equal(R.rank_band_mean(g, alive, lo_t, hi_t)[0],
+                                row),
+                    f"rank_band_mean M={m}: not bitwise the row-order "
+                    f"emulation with byzantine and dead rows")
+        line += (f", rank_band_mean (trimmed band and median) {e:.3e}, "
+                 f"bitwise the row-order emulation")
+        say(line + " (tol rtol 1e-5 atol 1e-5 x max|agg|; norm rtol 1e-4); "
+                   "deterministic")
+
+
 def make_world(torch):
     """The slice's data, model and task: `benchmarks/bench_fl.py`'s
     protocol (cifar10 stand-in at scale 0.5, Dirichlet(0.1), 40 clients)."""
@@ -740,10 +830,10 @@ def wire_slice_phase(torch, np, kernels, card, world):
         to_cpu = lambda tree: tree_map(lambda x: x.cpu(), tree)  # noqa: E731
         for i, (p_card, st_card, pend_card) in enumerate(sim.record):
             cpu.params, cpu._state = to_cpu(p_card), to_cpu(dict(st_card))
-            idx, sel, u = draws[i]
+            u = draws[i].u
             pend = cpu._client_section_local(
                 cpu.params, cpu._state,
-                (idx, sel, None if u is None else u.cpu()))
+                draws[i]._replace(u=None if u is None else u.cpu()))
             off, nv = compare_uploads(sim.codec, pend_card["grads"],
                                      pend["grads"], f"{label} round {i}")
             n_off, n_vals = n_off + off, n_vals + nv
@@ -929,6 +1019,321 @@ def methods_slice_phase(torch, np, kernels, card, world):
             f"pre {pre:.4f} vs {cpre:.4f} (tol 1e-2), agg_norm rtol 1e-3, "
             f"bytes_up equal")
     return count
+
+
+# the samplers and the fault models at the slice's protocol, fedncv with
+# beta = 0: (label, options, rounds, the kernel that carries the run's
+# server reduction, once a round); the byzantine ids are the first 8 of 40
+FAULT_RUNS = (
+    ("importance", dict(sampler="importance"), 3, "ncv_weighted_sum"),
+    ("similarity", dict(sampler="similarity"), 5, "ncv_weighted_sum"),
+    ("dropout", dict(fault="dropout", drop_skew=0.5), 3, "ncv_weighted_sum"),
+    ("straggler", dict(fault="straggler"), 3, "ncv_weighted_sum"),
+    ("markov", dict(fault="markov"), 5, "ncv_weighted_sum"),
+    ("byzantine-mean", dict(fault="byzantine"), 3, "ncv_weighted_sum"),
+    ("byzantine-trimmed_mean", dict(fault="byzantine",
+                                    aggregator="trimmed_mean",
+                                    trim_frac=0.25), 3, "rank_band_mean"),
+    ("byzantine-median", dict(fault="byzantine", aggregator="median"), 3,
+     "rank_band_mean"),
+    ("signflip-norm_clip", dict(fault="byzantine", byz_attack="signflip",
+                                aggregator="norm_clip"), 3,
+     "ncv_weighted_sum"),
+    ("labelflip-int8", dict(fault="byzantine", byz_attack="labelflip",
+                            codec="int8"), 3, "ncv_weighted_sum_q"),
+    ("dropout+importance", dict(sampler="importance", fault="dropout",
+                                drop_skew=0.5), 3, "ncv_weighted_sum"),
+    ("external", dict(sampler="external", ext_cohort=10, fault="external",
+                      ext_slots=10), 3, "ncv_weighted_sum"),
+)
+# aux bytes a round at cohort 10: FedNCV's 4 scalars a client, and the
+# sampler's statistics (importance: the upload norm; similarity: an
+# 8-float sketch)
+FAULT_AUX_BYTES = {"uniform": 160, "importance": 200, "similarity": 480,
+                   "external": 160}
+
+
+def external_tables(torch, r):
+    """The host-written tables of the external run's round r: the cohort
+    and its HT factors, and which slots report with their survival
+    factors.  In round 1 every slot is dead."""
+    g = torch.Generator().manual_seed(100 + r)
+    idx = torch.randperm(40, generator=g)[:10]
+    invp = torch.rand(10, generator=g) + 0.5
+    alive = (torch.rand(10, generator=g) > 0.3).float()
+    if r == 1:
+        alive = torch.zeros(10)
+    return (dict(idx=idx.int(), invp=invp),
+            dict(alive=alive, invp=alive / 0.7))
+
+
+def server_kernel_inputs_held(torch, K, R, ref, rref, kname, sim, pending):
+    """The run's server kernel against its plain version on one round's
+    own inputs (the card's uploads, or its int8 wire, and the weights the
+    round aggregated with).  Returns the largest abs error."""
+    from repro_torch.fed import aggregators
+    from repro_torch.kernels.rloo.rloo import ncv_coefficients
+    from repro_torch.utils.tree_math import ravel_stack
+
+    weights = pending["weights"]
+    coef = ncv_coefficients(weights, 0.0).to(weights.device)
+    if kname == "ncv_weighted_sum_q":
+        q, s = pending["grads"]["q"], pending["grads"]["s"]
+        kw = dict(chunk=sim.codec.chunk)
+        got = K.ncv_weighted_sum_q(q, s, coef, **kw)
+        want = ref.ncv_weighted_sum_q_ref(q, s, coef, **kw)
+    else:
+        flat = ravel_stack(pending["grads"])[0].contiguous()
+        if kname == "rank_band_mean":
+            alive = (weights > 0).float()
+            m_v = torch.sum(alive)
+            lo = torch.clamp(torch.floor((m_v - 1.0) / 2.0), min=0.0)
+            if sim.fl.aggregator == "trimmed_mean":
+                lo = torch.minimum(torch.clamp(torch.floor(
+                    sim._agg_opts["trim_frac"] * m_v), min=0.0), lo)
+            got = R.rank_band_mean(flat, alive, lo, m_v - 1.0 - lo)
+            want = rref.rank_band_mean_ref(flat, alive, lo, m_v - 1.0 - lo)
+        else:
+            if sim.fl.aggregator == "norm_clip":
+                coef = coef * aggregators._norm_clip_factors(
+                    flat, weights, sim._agg_opts["clip_mult"])
+            got = K.ncv_weighted_sum(flat, coef)
+            want = ref.ncv_weighted_sum_ref(flat, coef)
+    e = check_scaled(f"{kname} on the round's inputs", got[0], want[0])
+    check_close(f"{kname} norm on the round's inputs", got[1], want[1],
+                1e-4, 1e-6)
+    return e
+
+
+def byzantine_margin_check(torch, card, world):
+    """2 of 10 clients at byzantine `scale` 10 in one round, the same draws
+    for all four runs: the param step ||theta_1 - theta_0||^2 under `mean`
+    against its honest run must grow past 10x, under `trimmed_mean`
+    (trim_frac 0.25) stay under 4x, and the first ratio exceed the second
+    tenfold (`tests/test_faults.py::test_byzantine_scale_owns_mean_not_
+    trimmed`'s margins)."""
+    from repro_torch.fed import FLConfig, Simulator
+
+    params0 = world["params0"]
+    # clients 0 and 1 are byzantine (ceil(0.05 x 40) = 2), 10..17 honest
+    idx = torch.tensor([0, 1] + list(range(10, 18)))
+    steps = {}
+    for agg in ("mean", "trimmed_mean"):
+        aopts = dict(trim_frac=0.25) if agg == "trimmed_mean" else {}
+        for byz in (True, False):
+            fopts = dict(fault="byzantine", byz_frac=0.05, byz_scale=10.0) \
+                if byz else {}
+            fl = FLConfig.make(**FL_KW, ncv_beta=0.0, aggregator=agg,
+                               **aopts, **fopts)
+            sim = Simulator(world["task"], params0, world["train"], fl,
+                            seed=0)
+            sel = sim._draw_sel(idx)
+            sim.run_round(draws=(idx, sel))
+            steps[agg, byz] = float(sum(
+                torch.sum((sim.params[k] - params0[k].cuda()) ** 2)
+                for k in params0))
+    r_mean = steps["mean", True] / steps["mean", False]
+    r_trim = steps["trimmed_mean", True] / steps["trimmed_mean", False]
+    require(r_mean > 10.0 and r_trim < 4.0 and r_mean > 10.0 * r_trim,
+            f"byzantine scale 10, 2 of 10: param step ratio to the honest "
+            f"run {r_mean:.4f} under mean, {r_trim:.4f} under trimmed_mean "
+            f"(want > 10, < 4, and the first > 10x the second)")
+    say(f"byzantine scale 10, 2 of 10 clients, on {card}: param step "
+        f"||theta_1 - theta_0||^2 {steps['mean', True]:.6e} under mean "
+        f"({r_mean:.4f}x its honest run), {steps['trimmed_mean', True]:.6e} "
+        f"under trimmed_mean ({r_trim:.4f}x); margins > 10, < 4, ratio "
+        f"{r_mean / r_trim:.2f} > 10")
+
+
+def faults_samplers_phase(torch, np, K, R, ref, rref, kernels, card, world):
+    """The importance, similarity and external samplers and the five fault
+    models on the card at the slice's protocol, each replayed on the CPU
+    round by round from the card's state and on the card's draws and
+    plans; returns the launch count of each run's server kernel, from the
+    first run that uses it."""
+    from repro_torch.fed import FLConfig, Simulator
+    from repro_torch.fed.sampling import SKETCH_KEY
+    from repro_torch.utils.tree_math import ravel_stack, tree_map
+
+    class Recording(Simulator):
+        """Keeps each round's draws, and by reference its starting params
+        and state and its client section's output."""
+
+        def draw_round(self):
+            d = super().draw_round()
+            self.draws.append(d)
+            return d
+
+        def _client_section_local(self, params, state, draws):
+            pending = super()._client_section_local(params, state, draws)
+            self.record.append((params, state, pending))
+            return pending
+
+    train, test, task = world["train"], world["test"], world["task"]
+    params0 = world["params0"]
+    to_cpu = lambda tree: tree_map(lambda x: x.cpu(), tree)  # noqa: E731
+    counts = {}
+    for label, kw, rounds, kname in FAULT_RUNS:
+        fl = FLConfig.make(**FL_KW, ncv_beta=0.0, **kw)
+        external = fl.sampler == "external"
+
+        def drive(sim, n, first=0):
+            """n rounds; the external run writes its tables before each."""
+            if not external:
+                return sim.run_rounds(n)
+            rows = []
+            for r in range(first, first + n):
+                sim.sampler, sim.faults = external_tables(torch, r)
+                rows.append(sim.run_round())
+            return {k: np.float32([row[k] for row in rows]) for k in rows[0]}
+
+        # warm-up on a throwaway simulator (first launches), which then
+        # gives one profiled round
+        warm = Simulator(task, params0, train, fl, seed=1)
+        drive(warm, 1)
+        sim = Recording(task, params0, train, fl, seed=0)
+        sim.record, sim.draws = [], []
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        diags = drive(sim, rounds)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / rounds
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        want = {n: 0 for n in kernels}
+        want["rloo_combine"] = 2 * rounds
+        want[kname] = rounds
+        require(launches == want, f"{label}: launches {launches}, want "
+                                  f"{want}")
+        counts.setdefault(kname, launches[kname])
+        if external:
+            warm.sampler, warm.faults = external_tables(torch, 0)
+        dev_ms, dev_ops = device_ms_per_round(torch, warm,
+                                              [warm.draw_round()])
+        live = diags.get("live", np.full(rounds, 10.0, np.float32))
+        up = live * sim.codec.bytes_per_client() + FAULT_AUX_BYTES[fl.sampler]
+        require(np.array_equal(diags["bytes_up"], up.astype(np.float32)),
+                f"{label}: bytes_up {diags['bytes_up']}, want {up}")
+        pre = sim.evaluate(test)
+        finite = all(bool(torch.isfinite(v).all()) for v in
+                     sim.params.values()) and all(
+            np.isfinite(v).all() for v in diags.values()) and \
+            math.isfinite(pre)
+        require(finite, f"{label}: non-finite params, diagnostics or "
+                        f"accuracy")
+        say(f"{label} on {card}: {rounds} rounds, sec_per_round={sec:.4f}, "
+            f"device ms a round {dev_ms:.3f} in {dev_ops:.0f} device "
+            f"operations (torch.profiler), launches {launches}, bytes_up="
+            f"{[float(x) for x in diags['bytes_up']]}, live="
+            f"{[float(x) for x in live]}, agg_norm="
+            f"{[float(x) for x in diags['agg_norm']]}, pre={pre:.4f}")
+        if external:
+            # round 1: every slot dead, a finite no-op
+            p1, st1, _ = sim.record[1]
+            p2, st2, _ = sim.record[2]
+            require(float(diags["agg_norm"][1]) == 0.0 and
+                    float(diags["live"][1]) == 0.0 and
+                    all(torch.equal(p1[k], p2[k]) for k in p1) and
+                    torch.equal(st1["alphas"], st2["alphas"]),
+                    f"{label}: the all-dead round is not a no-op")
+            say(f"{label}: round 1, every slot dead: agg_norm 0, live 0, "
+                f"params and alphas bitwise unchanged")
+
+        # the server kernel against its plain version on each round's own
+        # inputs (these launches are not counted)
+        k_err = max(server_kernel_inputs_held(torch, K, R, ref, rref, kname,
+                                              sim, pend)
+                    for _, _, pend in sim.record)
+
+        # the same draws and plans on the CPU, each round from the card's
+        # state: the client section held to the card's (uploads, aux and
+        # returned client state, up to the near-tie share; the weights, HT
+        # factors and survival mask bitwise), then its server section takes
+        # the card's and must land on the card's params and every state
+        # field, sampler and fault state included
+        cpu = Simulator(task, params0, train, fl, seed=0, device="cpu")
+        margin, n_off, n_vals, sketch_err = 0.0, 0, 0, 0.0
+        for i, (p_card, st_card, pend_card) in enumerate(sim.record):
+            cpu.params, cpu._state = to_cpu(p_card), to_cpu(dict(st_card))
+            d = sim.draws[i]
+            pend = cpu._client_section_local(
+                cpu.params, cpu._state,
+                d._replace(u=None if d.u is None else d.u.cpu()))
+            for part in ("weights", "invp", "alive", "live"):
+                require((part in pend) == (part in pend_card) and (
+                    part not in pend or torch.equal(pend_card[part].cpu(),
+                                                    pend[part])),
+                        f"{label} round {i}: {part} differs on the CPU")
+            identity = sim.codec.name == "identity"
+            if not identity:
+                off, nv = compare_uploads(sim.codec, pend_card["grads"],
+                                          pend["grads"], f"{label} round {i}")
+                n_off, n_vals = n_off + off, n_vals + nv
+            aux_card, aux_cpu = dict(pend_card["aux"]), dict(pend["aux"])
+            if SKETCH_KEY in aux_cpu:
+                # a sketch entry sums +-g_j / sqrt(d) over N coordinates and
+                # can cancel to near 0, so each is held to its own sum's
+                # scale, ||g_u||_1 / sqrt(d), the dot product's error bound
+                flat = ravel_stack(pend["grads"])[0] if identity else \
+                    sim.codec.decode(pend["grads"])
+                scale = flat.abs().sum(1, keepdim=True) / math.sqrt(
+                    aux_cpu[SKETCH_KEY].shape[1])
+                err = (aux_card.pop(SKETCH_KEY).cpu()
+                       - aux_cpu.pop(SKETCH_KEY)).abs()
+                sketch_off = int((err > PARAM_ATOL + PARAM_RTOL * scale)
+                                 .sum())
+                require(sketch_off == 0,
+                        f"{label} round {i}: {sketch_off} sketch values off "
+                        f"rtol {PARAM_RTOL} x ||g_u||_1 / sqrt(d)")
+                sketch_err = max(sketch_err, float((err / scale).max()))
+            parts = [("aux", aux_card, aux_cpu),
+                     ("cstates", pend_card["cstates"], pend["cstates"])]
+            if identity:
+                parts.append(("grads", pend_card["grads"], pend["grads"]))
+            for part, card_, cpu_ in parts:
+                off, nv = off_tolerance(torch, card_, cpu_)
+                n_off, n_vals = n_off + off, n_vals + nv
+                require(off <= MAX_OFF_SHARE * nv,
+                        f"{label} round {i} {part}: {off} of {nv} values "
+                        f"off the tolerance")
+            pend = {k: to_cpu(v) for k, v in pend_card.items()}
+            cpu.params, cpu._state, cdiag = cpu._server_section(
+                cpu.params, cpu._state, pend, i + 1)
+            after = sim.record[i + 1] if i + 1 < len(sim.record) else (
+                sim.params, sim._state)
+            require(set(after[1]) == set(cpu._state),
+                    f"{label}: state fields {sorted(after[1])} on the card, "
+                    f"{sorted(cpu._state)} on the CPU")
+            cstate = cpu._state
+            if external and i + 1 < len(sim.record):
+                # the host wrote the next round's tables in between
+                cstate = dict(cstate, sampler=to_cpu(after[1]["sampler"]),
+                              faults=to_cpu(after[1]["faults"]))
+            margin = max(margin, margin_of(after[0], cpu.params),
+                         margin_of(after[1], cstate))
+            np.testing.assert_allclose(diags["agg_norm"][i],
+                                       float(cdiag["agg_norm"]), rtol=1e-3,
+                                       atol=1e-12)
+            for k in ("bytes_up", "live"):
+                require(k not in cdiag or float(cdiag[k]) == float(
+                    diags[k][i]), f"{label}: {k} differs from the CPU replay")
+        require(margin <= 1.0, f"{label}: card vs CPU replay margin "
+                               f"{margin:.4f} > 1")
+        say(f"{label}: {kname} held to its plain version on each round's "
+            f"inputs, max abs err {k_err:.3e} (tol rtol {KERNEL_RTOL} atol "
+            f"{KERNEL_ATOL} x max|agg|); card vs CPU replay, round by round "
+            f"from the card's state on its draws and plans: params and state "
+            f"{sorted(cpu._state)} margin {margin:.4f} (tol rtol {PARAM_RTOL} "
+            f"atol {PARAM_ATOL}: margin <= 1), client values off the "
+            f"tolerance {n_off} of {n_vals} (at most {MAX_OFF_SHARE} of "
+            f"each part), weights / HT factors / survival bitwise, agg_norm "
+            f"rtol 1e-3, bytes_up and live equal" + (
+                f"; sketch err / (||g_u||_1 / sqrt(d)) at most "
+                f"{sketch_err:.3e} (tol {PARAM_RTOL}, + atol {PARAM_ATOL})"
+                if fl.sampler == "similarity" else ""))
+    byzantine_margin_check(torch, card, world)
+    return counts
 
 
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
@@ -1442,6 +1847,7 @@ def main() -> int:
         f"a node")
     reports = kernel_phase(torch, K, ref, floor_ms)
     reports.update(wire_kernel_phase(torch, K, R, ref, rref, comm, floor_ms))
+    fault_input_kernel_phase(torch, K, R, ref, rref, comm, reports)
     reports.update(lm_kernel_phase(torch, card))
     phase_s["kernels"] = time.perf_counter() - t_phase
 
@@ -1458,6 +1864,9 @@ def main() -> int:
         counts.setdefault(name, n)      # the main path's own count first
     counts.setdefault("ncv_weighted_sum", methods_slice_phase(
         torch, np, kernels, card, world))
+    for name, n in faults_samplers_phase(torch, np, K, R, ref, rref, kernels,
+                                         card, world).items():
+        counts.setdefault(name, n)
     phase_s["fl slice"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     del world

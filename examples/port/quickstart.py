@@ -2,7 +2,7 @@
 non-IID data, on the GPU.
 
     PYTHONPATH=src python examples/port/quickstart.py [--device cpu]
-        [--sampler NAME] [--rounds N]
+        [--sampler NAME] [--fault NAME] [--rounds N]
 
 The twin of `examples/quickstart.py` on `repro_torch`: it trains LeNet-5
 federatedly for 15 rounds (12 clients, cohort 6, K = 4 microbatches of 16,
@@ -10,8 +10,10 @@ cifar10 stand-in at scale 0.15) and prints the pre- and
 post-personalization accuracy and the uploaded KiB a round of each run:
 fedavg and fedncv over the identity wire, and fedncv over the int8 wire.
 The reference's fourth run, fedncv over the `topk` wire, is not run here:
-`topk` is not ported to `repro_torch` yet.  `--sampler`, `--tracker` and
-`--store` take the names the port has registered.  It runs on the CUDA
+`topk` is not ported to `repro_torch` yet.  `--sampler`, `--fault`,
+`--tracker` and `--store` take the names the port has registered, except
+`external`, whose tables a host program writes each round; a fault
+model runs with its default options.  It runs on the CUDA
 device unless `--device cpu` is given; without a card and without that
 option it stops with an error.
 """
@@ -22,8 +24,9 @@ import argparse
 import torch
 
 from repro_torch.data import federated_splits
-from repro_torch.fed import (FLConfig, Simulator, Task, registered_samplers,
-                             registered_stores, registered_trackers)
+from repro_torch.fed import (FLConfig, Simulator, Task, registered_faults,
+                             registered_samplers, registered_stores,
+                             registered_trackers)
 from repro_torch.models import lenet
 
 ROUNDS = 15
@@ -45,13 +48,14 @@ def make_world():
 
 
 def make_config(method, codec, sampler="uniform", tracker="none",
-                store="device"):
+                store="device", fault="none"):
     ncv_kw = dict(ncv_alpha0=0.3, ncv_alpha_lr=1e-5, ncv_beta=0.0) \
         if method == "fedncv" else {}
     return FLConfig.make(method=method, n_clients=12, cohort=6, k_micro=4,
                          micro_batch=16, server_lr=0.5, codec=codec,
                          sampler=sampler, local_lr=0.05, local_epochs=2,
-                         tracker=tracker, store=store, **ncv_kw)
+                         tracker=tracker, store=store, fault=fault,
+                         **ncv_kw)
 
 
 def run(fl, task, params, train, rounds=ROUNDS, device=None, draws=None):
@@ -67,7 +71,9 @@ def main():
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     ap.add_argument("--sampler", default="uniform",
-                    choices=sorted(registered_samplers()))
+                    choices=sorted(set(registered_samplers()) - {"external"}))
+    ap.add_argument("--fault", default="none",
+                    choices=sorted(set(registered_faults()) - {"external"}))
     ap.add_argument("--rounds", type=int, default=ROUNDS)
     ap.add_argument("--tracker", default="none",
                     choices=sorted(registered_trackers()))
@@ -79,7 +85,7 @@ def main():
     for method, codec in RUNS:
         params = lenet.init(cfg, torch.Generator().manual_seed(0))
         fl = make_config(method, codec, args.sampler, args.tracker,
-                         args.store)
+                         args.store, args.fault)
         sim, diags = run(fl, task, params, train, args.rounds, args.device)
         pre = sim.evaluate(test)
         post = sim.evaluate(test, personalize_steps=3)

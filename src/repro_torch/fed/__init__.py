@@ -1,7 +1,16 @@
-from repro_torch.fed.api import (  # noqa: F401
-    FedMethod, FLConfig, StateField, get_method, register_method,
-    registered_methods, registered_stores, registered_trackers,
+from repro_torch.fed.aggregators import (  # noqa: F401
+    Aggregator, get_aggregator, register_aggregator, registered_aggregators,
 )
-from repro_torch.fed.methods import MethodConfig, Task  # noqa: F401
-from repro_torch.fed.sampling import registered_samplers  # noqa: F401
-from repro_torch.fed.simulator import Simulator  # noqa: F401
+from repro_torch.fed.api import (  # noqa: F401
+    FedMethod, FLConfig, MethodCtx, RoundCtx, StateField, get_method,
+    register_method, registered_methods, registered_stores,
+    registered_trackers,
+)
+from repro_torch.fed.faults import (  # noqa: F401
+    FaultModel, get_fault, register_fault, registered_faults,
+)
+from repro_torch.fed.methods import ClientOut, MethodConfig, Task  # noqa: F401
+from repro_torch.fed.sampling import (  # noqa: F401
+    CohortSampler, get_sampler, register_sampler, registered_samplers,
+)
+from repro_torch.fed.simulator import Draws, Simulator  # noqa: F401

@@ -10,11 +10,13 @@ TypeError, a bad value raises ValueError.
 
 Ported so far: all nine methods the reference registers (`fedavg`,
 `fedncv`, `fedncv+`, `fedprox`, `scaffold`, `fedper`, `fedrep`, `pfedsim`,
-`fedglomo`), the `uniform` sampler,
-the aggregators `mean`, `trimmed_mean`, `median` and `norm_clip`, the
-codecs `identity`, `bf16`, `int8` and `int4`, fault model `none`, tracker
-`none` and store `device`.  A name the reference has but the port does not
-yet raises KeyError saying so; it is never ignored.
+`fedglomo`), all four samplers (`uniform`, `importance`, `similarity`,
+`external`), the aggregators `mean`, `trimmed_mean`, `median` and
+`norm_clip`, the codecs `identity`, `bf16`, `int8` and `int4`, all six
+fault models (`none`, `dropout`, `markov`, `straggler`, `byzantine`,
+`external`), tracker `none` and store `device`.  A name the reference
+has but the port does not yet raises KeyError saying so; it is never
+ignored.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 from repro_torch import comm
 from repro_torch.core import control_variates as cv
 from repro_torch.fed import aggregators
+from repro_torch.fed import faults
 from repro_torch.fed import methods as M
 from repro_torch.fed import sampling
 from repro_torch.utils.tree_math import (ravel_stack, tree_axpy, tree_leaves,
@@ -45,11 +48,11 @@ class RoundCtx(tp.NamedTuple):
 
     `grads` is None unless the method sets `needs_dense_grads`; it is then
     the dense stacked upload tree (decoded from the wire once).  `weights`
-    are the Eq. 10-12 effective counts the aggregation ran with (`sizes`
-    under the uniform sampler).  `invp`, a non-uniform sampler's
-    inverse-probability factors 1 / (M q_u), and `alive`, a fault model's
-    (cohort,) 0/1 survival mask, are None under the uniform sampler with no
-    faults, the only ones ported."""
+    are the Eq. 10-12 effective counts the aggregation ran with: `sizes`
+    times the sampler's and the fault plan's HT factors.  `invp` is the
+    product of those factors (None when neither reweights), and `alive`
+    the fault model's (cohort,) 0/1 survival mask (None unless the model
+    drops clients)."""
     task: M.Task
     mc: M.MethodConfig
     fl: "FLConfig"
@@ -125,12 +128,11 @@ _REGISTRY: dict[str, FedMethod] = {}
 
 # names the reference registers that the port does not have yet
 _NOT_PORTED = {
-    "fault": ("byzantine", "dropout", "external", "markov", "straggler"),
     "tracker": ("composite", "csv", "jsonl", "memory", "stdout"),
     "store": ("host",),
 }
 # the ported option-less strategies of the other registries
-_PORTED = {"fault": ("none",), "tracker": ("none",), "store": ("device",)}
+_PORTED = {"tracker": ("none",), "store": ("device",)}
 
 
 def not_ported(kind: str, name: str, have) -> KeyError:
@@ -209,18 +211,25 @@ def gather_cohort_states(fields: tuple[StateField, ...], state, idx):
 
 
 def scatter_cohort_states(fields: tuple[StateField, ...], state, idx,
-                          cstates_new) -> dict:
+                          cstates_new, alive=None) -> dict:
     """Write client-returned rows back at the cohort indices (fields with
-    scatter=True)."""
+    scatter=True).
+
+    `alive` ((cohort,) 0/1, or None): a dropped client never reported, so
+    its row keeps the previous state."""
     new = dict(state)
     for f in fields:
         if f.per_client and f.scatter and f.cstate_key is not None:
-            def put(a, rows):
+            rows = cstates_new[f.cstate_key]
+            if alive is not None:
+                rows = faults.where_rows(
+                    alive, rows, tree_map(lambda a: a[idx], state[f.name]))
+
+            def put(a, r):
                 a = a.clone()
-                a[idx] = rows
+                a[idx] = r
                 return a
-            new[f.name] = tree_map(put, state[f.name],
-                                   cstates_new[f.cstate_key])
+            new[f.name] = tree_map(put, state[f.name], rows)
     return new
 
 
@@ -332,8 +341,7 @@ class FLConfig:
         if method.validate is not None:
             method.validate(self.mc)
         comm.validate_codec_opts(self.codec, self.codec_opts)
-        for kind, name, opts in (("fault", self.fault, self.fault_opts),
-                                 ("tracker", self.tracker, self.tracker_opts),
+        for kind, name, opts in (("tracker", self.tracker, self.tracker_opts),
                                  ("store", self.store, self.store_opts)):
             _check_name(kind, name)
             if opts:
@@ -343,6 +351,7 @@ class FLConfig:
                               self.sampler_opts)
         agg = aggregators.get_aggregator(self.aggregator)
         aggregators.resolve_opts(agg, self.agg_opts)
+        faults.resolve_opts(faults.get_fault(self.fault), self.fault_opts)
         if method.needs_dense_grads and self.aggregator != "mean":
             raise ValueError(
                 f"method '{self.method}' consumes the dense per-client "
@@ -369,12 +378,11 @@ class FLConfig:
         """Validated construction: every name must be registered (or raise
         that it is not ported yet), and every extra keyword must be an
         option one of the chosen strategies reads — COMMON_OPTIONS plus the
-        method's declared options, or the codec's, sampler's or
-        aggregator's."""
+        method's declared options, or the codec's, sampler's, aggregator's
+        or fault model's."""
         m = get_method(method)
         comm.check_codec_name(codec)
-        for kind, name in (("fault", fault), ("tracker", tracker),
-                           ("store", store)):
+        for kind, name in (("tracker", tracker), ("store", store)):
             _check_name(kind, name)
         subsystems = (
             ("method", method, COMMON_OPTIONS | set(m.options), None),
@@ -384,6 +392,8 @@ class FLConfig:
             ("aggregator", aggregator,
              set(aggregators.get_aggregator(aggregator).options),
              "agg_opts"),
+            ("fault", fault, set(faults.get_fault(fault).options),
+             "fault_opts"),
         )
         for name in sorted(opts):
             claims = [s for s in subsystems if name in s[2]]
@@ -415,6 +425,7 @@ class FLConfig:
         s_opts = routed(subsystems[2][2], sampler_opts, "sampler",
                         "sampler_opts")
         a_opts = routed(subsystems[3][2], agg_opts, "aggregator", "agg_opts")
+        f_opts = routed(subsystems[4][2], fault_opts, "fault", "fault_opts")
         method_opts = {k: v for k, v in opts.items() if k in subsystems[0][2]}
         return cls(method=method, n_clients=n_clients, cohort=cohort,
                    k_micro=k_micro, micro_batch=micro_batch,
@@ -422,7 +433,7 @@ class FLConfig:
                    codec_opts=c_opts, staleness=staleness,
                    sampler=sampler, sampler_opts=s_opts,
                    aggregator=aggregator, agg_opts=a_opts,
-                   fault=fault, fault_opts=dict(fault_opts or {}),
+                   fault=fault, fault_opts=f_opts,
                    tracker=tracker, tracker_opts=dict(tracker_opts or {}),
                    store=store, store_opts=dict(store_opts or {}),
                    track_variance=track_variance,
@@ -499,6 +510,10 @@ def _fedncv_server(ctx: RoundCtx, params, agg, state):
     else:
         alpha_new = cv.alpha_descent_update(aux["alpha"], stats,
                                             mc.ncv_alpha_lr)
+    if ctx.alive is not None:
+        # a dropped client's stats never arrived: it keeps the alpha the
+        # round started from
+        alpha_new = torch.where(ctx.alive > 0, alpha_new, aux["alpha"])
     alphas = state["alphas"].clone()
     alphas[ctx.idx] = alpha_new
     return params, dict(state, alphas=alphas), diag

@@ -9,8 +9,15 @@
 
 first-call: fresh processes, each set up as the parity tests are (both
 packages' `fed` imported, JAX's CPU client started by the reference's
-LeNet init), run LeNet's first stage (conv1, + b1, tanh) twice on the same
-tensors, once through `torch.tanh` and once through the port's CPU tanh
+LeNet init).  Each first runs the port's `lenet.loss_fn` and its gradient
+(`torch.func.grad`, as the client pass takes it) twice on the same
+batches: the per-example losses (`softmax_xent`'s `torch.logsumexp`, MKL's
+`vmsExp` and `vmsLn` on the CPU), the mean loss and the gradient, at the
+simulator tests' cohort batch (3 x 3 x 4 images, vmapped as the client
+pass runs) and at one batch of 2,048 images (large enough for MKL to split
+across threads); these are the process's first f32 exp and log calls.
+Then LeNet's first stage (conv1, + b1, tanh) twice on the same tensors,
+once through `torch.tanh` and once through the port's CPU tanh
 (`models/lenet.py::_CPUTanh`).  Each reports the values whose first call
 differs from the second, where they lie (a share of the OpenMP threads'
 even split), each call's largest error against f64 tanh and, where the
@@ -46,6 +53,32 @@ from repro_torch.models import lenet as tlenet
 from repro_torch.weights import params_from_jax
 p = params_from_jax(jax.tree.map(np.asarray, jlenet.init(
     jlenet.LeNetConfig(), jax.random.PRNGKey(0))))
+# the loss first: its logsumexp makes the process's first f32 exp / log
+from torch.func import grad, vmap
+cfg = tlenet.LeNetConfig()
+rng = np.random.default_rng(1)
+def batch(*lead):
+    return {"images": torch.from_numpy(rng.standard_normal(
+                lead + (32, 32, 3)).astype(np.float32)),
+            "labels": torch.from_numpy(rng.integers(0, 10, lead))}
+loss = lambda q, b: tlenet.loss_fn(cfg, q, b)
+per_example = lambda q, b: torch.logsumexp(
+    tlenet.forward(cfg, q, b["images"].reshape(-1, 32, 32, 3)), dim=-1)
+cohort, big = batch(3, 3, 4), batch(2048)
+cohort_grad = vmap(vmap(grad(loss), in_dims=(None, 0)), in_dims=(None, 0))
+flat = lambda t: torch.cat([v.reshape(-1) for v in
+                            (t.values() if isinstance(t, dict) else [t])])
+loss_rows = []
+for name, fn, b in (("logsumexp cohort", per_example, cohort),
+                    ("logsumexp 2048", per_example, big),
+                    ("loss cohort", lambda q, b: vmap(vmap(
+                        loss, in_dims=(None, 0)), in_dims=(None, 0))(q, b),
+                     cohort),
+                    ("loss 2048", loss, big),
+                    ("grad cohort", cohort_grad, cohort),
+                    ("grad 2048", grad(loss), big)):
+    a, c = flat(fn(p, b)), flat(fn(p, b))
+    loss_rows.append(f"{name}: {int((a != c).sum())} of {a.numel()} differ")
 images = torch.from_numpy(np.random.default_rng(0).standard_normal(
     (6, 32, 32, 3)).astype(np.float32))
 z = F.conv2d(images.permute(0, 3, 1, 2), p["conv1"].permute(3, 2, 0, 1)) \
@@ -80,7 +113,7 @@ for name, (a, b) in calls.items():
                         f"{torch.equal(r, mem(b))}")
     out.append(row + f"; max err vs f64: first {err(a):.3e}, second "
                f"{err(b):.3e}")
-print(" | ".join(out))
+print(" | ".join(loss_rows + out))
 """
 
 
@@ -97,13 +130,15 @@ def first_call(args):
 
     with ThreadPoolExecutor(args.par) as ex:
         rows = list(ex.map(one, range(args.procs)))
-    drift = [r for r in rows if not r.startswith("torch.tanh: 0 of")]
+    drift = [r for r in rows if "torch.tanh: 0 of" not in r]
     port = [r for r in rows if "port: 0 of" not in r]
-    for r in drift + [r for r in port if r not in drift]:
+    loss = [r for r in rows if r.count(": 0 of") < 8]
+    for r in drift + [r for r in port + loss if r not in drift]:
         print(r)
     print(f"{args.procs} processes ({args.par} at a time): torch.tanh's "
           f"first call differed in {len(drift)}, the port's CPU tanh in "
-          f"{len(port)}")
+          f"{len(port)}, the port's loss, its per-example logsumexp or its "
+          f"gradient in {len(loss)}")
 
 
 def rounding(args):

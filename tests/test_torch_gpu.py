@@ -411,6 +411,84 @@ def test_method_rounds_launch_their_kernel_and_match_cpu(cuda, method):
     assert np.isfinite(sim.evaluate(test, personalize_steps=3))
 
 
+# the samplers and fault models: (options, the server kernel); the first
+# ceil(0.2 x 6) = 2 client ids are byzantine
+_FAULT_PATHS = {
+    "importance": (dict(sampler="importance"), "wsum"),
+    "similarity": (dict(sampler="similarity"), "wsum"),
+    "dropout": (dict(fault="dropout", drop_rate=0.4, drop_skew=0.5), "wsum"),
+    "straggler": (dict(fault="straggler"), "wsum"),
+    "markov": (dict(fault="markov", mk_fail=0.3), "wsum"),
+    "byzantine-mean": (dict(fault="byzantine"), "wsum"),
+    "byzantine-trimmed_mean": (dict(fault="byzantine",
+                                    aggregator="trimmed_mean",
+                                    trim_frac=0.25), "band"),
+    "byzantine-median": (dict(fault="byzantine", aggregator="median"),
+                         "band"),
+    "signflip-norm_clip": (dict(fault="byzantine", byz_attack="signflip",
+                                aggregator="norm_clip"), "wsum"),
+    "labelflip-int8": (dict(fault="byzantine", byz_attack="labelflip",
+                            codec="int8"), "q8"),
+    "dropout+importance": (dict(sampler="importance", fault="dropout",
+                                drop_rate=0.4), "wsum"),
+    "external": (dict(sampler="external", ext_cohort=4, fault="external",
+                      ext_slots=4), "wsum"),
+}
+
+
+def _external_tables(r):
+    """Round r's host-written tables; in round 1 every slot is dead."""
+    alive = torch.tensor([1.0, 0.0, 1.0, 1.0]) if r == 0 else torch.zeros(4)
+    return (dict(idx=torch.tensor([4, 0, 2, 5], dtype=torch.int32),
+                 invp=torch.tensor([1.5, 0.5, 1.0, 0.8])),
+            dict(alive=alive, invp=alive / 0.7))
+
+
+@pytest.mark.parametrize("case", list(_FAULT_PATHS))
+def test_sampler_and_fault_rounds_launch_their_kernels(cuda, case):
+    """Two rounds of each sampler and fault path: two `rloo_combine` and
+    one server kernel a round, no other; params finite; over the identity
+    wire, params and every state field (sampler and fault state among
+    them) within the CPU run's tolerance on the card's draws and plans."""
+    kw, kernel = _FAULT_PATHS[case]
+    spec, train, test = federated_splits("cifar10", n_clients=6, alpha=0.1,
+                                         seed=0, scale=0.02)
+    cfg = lenet.LeNetConfig()
+    task = Task(loss=lambda p, b: lenet.loss_fn(cfg, p, b),
+                accuracy=lambda p, b: lenet.accuracy(cfg, p, b))
+    fl = FLConfig.make(method="fedncv", n_clients=6, cohort=4, k_micro=3,
+                       micro_batch=4, server_lr=0.5, local_lr=0.05,
+                       local_epochs=2, ncv_alpha0=0.3, ncv_beta=0.0, **kw)
+    params = lenet.init(cfg, torch.Generator().manual_seed(0))
+    sims = [Simulator(task, params, train, fl, seed=0),
+            Simulator(task, params, train, fl, seed=0, device="cpu")]
+    fns = dict(rloo=K.rloo_combine, q8=K.ncv_weighted_sum_q,
+               q4=K.ncv_weighted_sum_q4, wsum=K.ncv_weighted_sum,
+               band=R.rank_band_mean)
+    before = {n: f.launches for n, f in fns.items()}
+    draws = []
+    for r in range(2):
+        if case == "external":
+            for s in sims:
+                s.sampler, s.faults = _external_tables(r)
+        draws.append(sims[0].draw_round())
+        sims[0].run_round(draws=draws[-1])
+    launches = {n: f.launches - before[n] for n, f in fns.items()}
+    assert launches == dict({n: 0 for n in fns}, rloo=4, **{kernel: 2})
+    assert all(bool(torch.isfinite(v).all())
+               for v in sims[0].params.values())
+    if fl.codec != "identity":
+        return
+    for d in draws:
+        sims[1].run_round(draws=d)
+    for k, v in sims[0].params.items():
+        torch.testing.assert_close(v.cpu(), sims[1].params[k], rtol=1e-4,
+                                   atol=1e-5)
+    for name, tree in sims[0]._state.items():
+        tree_map(lambda a, b: torch.testing.assert_close(
+            a.cpu(), b, rtol=1e-4, atol=1e-5), tree, sims[1]._state[name])
+
+
 # ----------------------------- LM slice: flash attention, selective scan ----
 
 def _qkv(seed, b, s, h, kv, hd, dtype):

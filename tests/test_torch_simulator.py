@@ -345,8 +345,8 @@ def test_flconfig_errors_match_reference(kw, err):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(fault="markov"), dict(codec="topk"), dict(sampler="importance"),
-    dict(codec="lowrank"), dict(fault="dropout"),
+    dict(tracker="csv"), dict(codec="topk"), dict(tracker="memory"),
+    dict(codec="lowrank"), dict(tracker="stdout"),
     dict(tracker="jsonl"),
     dict(store="host"),
 ])
