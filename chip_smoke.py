@@ -65,7 +65,20 @@ without the final `ok` line:
                server kernel also held to its plain version on each round's
                inputs, and a robustness check (2 of 10 clients at byzantine
                scale 10: the param step under mean against trimmed_mean),
-               printing each run's device ms a round (torch.profiler).
+               printing each run's device ms a round (torch.profiler);
+               then `pipeline_store_ckpt_phase`: the depth-K ring (FedNCV
+               beta = 1 at K = 1, 2, 3 and at K = 2 with dropout and the
+               importance sampler, 6 rounds each: bitwise the
+               hand-unrolled client/server loop and chunked driving, K
+               all-zero bubble rows, a CPU replay of its draws), the host
+               store against the device store bitwise round by round
+               (fedncv, scaffold, fedncv+, fedncv at K = 2, fedncv under
+               dropout, whose dropped rows must stay unwritten), fedncv+
+               at 10,000 clients under both stores (bitwise params and h;
+               the host store's device bytes the same at 1,000 clients),
+               and a checkpoint at round 3 of a K = 2 run under both
+               stores that must resume bitwise, generators included, and
+               refuse another depth or store.
                Checks the launch
                counts, `bytes_up`, finiteness, and the parameters against
                a CPU replay of the same draws through the plain versions
@@ -1336,6 +1349,338 @@ def faults_samplers_phase(torch, np, K, R, ref, rref, kernels, card, world):
     return counts
 
 
+# the depth-K ring, the host store and checkpoints (phase 4, last FL part)
+RING_ROUNDS = 6
+SCALE_M = 10_000               # clients of the host store at scale
+SMALL_M = 1_000                # ... against which its device bytes stay
+HOST_REPS = 3                  # timed turns of each store, interleaved
+
+
+def spread(xs):
+    """'median [min, max]' of a few times."""
+    xs = sorted(xs)
+    return f"{xs[len(xs) // 2]:.4f} [{xs[0]:.4f}, {xs[-1]:.4f}]"
+SCALE_ROUNDS = 3
+
+
+def same_bits(a, b):
+    """Whether two trees (on any devices) are bitwise equal."""
+    import torch
+    from repro_torch.utils.tree_math import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+        for x, y in zip(la, lb))
+
+
+def sim_same(a, b):
+    """Params and the whole state of two simulators, bitwise."""
+    sa, sb = a._get_state(), b._get_state()
+    return same_bits(a.params, b.params) and set(sa) == set(sb) and all(
+        same_bits(sa[k], sb[k]) for k in sa)
+
+
+def unrolled_on(sim, n, k, draws=None):
+    """The hand-unrolled depth-k pipeline on a sync simulator's sections:
+    issue at round r, apply at round r + k, oldest first; without `draws`
+    each round draws from `sim` as it stands."""
+    ring = []
+    for i in range(n):
+        d = sim.draw_round() if draws is None else draws[i]
+        pending = sim._client_section_local(sim.params, sim._state, d)
+        if len(ring) == k:
+            sim.params, sim._state, _ = sim._server_section(
+                sim.params, sim._state, ring.pop(0), i + 1)
+        ring.append(pending)
+    return sim
+
+
+def scale_world(np, world, m):
+    """`m` clients whose index rows address the slice's training images as
+    one shared pool (`benchmarks/bench_scalability.py`'s layout), 64
+    samples each."""
+    train = world["train"]
+    n_max = FL_BASE["k_micro"] * FL_BASE["micro_batch"]
+    pool = len(train["labels"])
+    return dict(images=train["images"], labels=train["labels"],
+                client_idx=(np.arange(m * n_max, dtype=np.int64) % pool)
+                .reshape(m, n_max),
+                client_sizes=np.full((m,), n_max, np.int64))
+
+
+def pipeline_store_ckpt_phase(torch, np, kernels, card, world):
+    """The depth-K ring (K = 1, 2, 3), the host store (at 40 clients, and
+    fedncv+ at 10,000) and checkpoints on the card; returns this phase's
+    launch count of each kernel."""
+    import shutil
+    from repro_torch import checkpoint
+    from repro_torch.fed import FLConfig, Simulator
+
+    class Recording(Simulator):
+        """Keeps each round's draws."""
+
+        def draw_round(self):
+            d = super().draw_round()
+            self.draws.append(d)
+            return d
+
+    train, task, params0 = world["train"], world["task"], world["params0"]
+    lit = dict(FL_KW, ncv_beta=1.0)
+    counts = {n: 0 for n in kernels}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for f in kernels.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        got = {n: f.launches for n, f in kernels.items()}
+        for n, c in got.items():
+            counts[n] += c
+        return out, sec, got
+
+    # -- the ring: FedNCV beta = 1 at K = 1, 2, 3; K = 2 with dropout and
+    # the importance sampler
+    runs = [(f"ring-k{k}", k, {}) for k in (1, 2, 3)] + [
+        ("ring-k2-dropout+importance", 2,
+         dict(fault="dropout", sampler="importance"))]
+    for label, k, extra in runs:
+        fl0 = FLConfig.make(**lit, **extra)
+        fl = FLConfig.make(**lit, staleness=k, **extra)
+        sim = Recording(task, params0, train, fl, seed=0)
+        sim.draws = []
+        diags, sec, got = counted(lambda: sim.run_rounds(RING_ROUNDS))
+        # the sync round on the same draws, timed right after
+        sync = Simulator(task, params0, train, fl0, seed=0)
+        _, sync_sec, _ = counted(lambda: sync.run_rounds(
+            RING_ROUNDS, draws=sim.draws))
+        want = {n: 0 for n in kernels}
+        want.update(rloo_combine=2 * RING_ROUNDS,
+                    ncv_weighted_sum=RING_ROUNDS)
+        require(got == want, f"{label}: launches {got}, want {want}")
+        zero = all(np.all(v[:k] == 0.0) for v in diags.values())
+        require(zero and np.all(diags["agg_norm"][k:] > 0.0),
+                f"{label}: bubble rows {diags}")
+        ref = unrolled_on(Simulator(task, params0, train, fl0, seed=0),
+                          RING_ROUNDS, k, None if extra else sim.draws)
+        require(sim_same(sim, ref), f"{label}: the ring differs from the "
+                                    f"hand-unrolled loop on the card")
+        chunked = Simulator(task, params0, train, fl, seed=0)
+        parts = [chunked.run_rounds(2) for _ in range(RING_ROUNDS // 2)]
+        require(sim_same(sim, chunked) and all(
+            np.array_equal(v, np.concatenate([p[key] for p in parts]))
+            for key, v in diags.items()),
+            f"{label}: run_rounds(2) x {RING_ROUNDS // 2} differs from "
+            f"run_rounds({RING_ROUNDS})")
+        cpu = Simulator(task, params0, train, fl, seed=0, device="cpu")
+        cdiags = cpu.run_rounds(RING_ROUNDS, draws=[
+            d._replace(u=None if d.u is None else d.u.cpu())
+            for d in sim.draws])
+        margin = max(margin_of(sim.params, cpu.params),
+                     margin_of(sim._state, cpu._state))
+        require(margin <= 1.0, f"{label}: card vs CPU replay margin "
+                               f"{margin:.4f} > 1")
+        np.testing.assert_allclose(diags["agg_norm"], cdiags["agg_norm"],
+                                   rtol=1e-3)
+        require(all(np.array_equal(diags[key], cdiags[key])
+                    for key in ("bytes_up", "live") if key in diags),
+                f"{label}: bytes_up or live differs from the CPU replay")
+        finite = all(bool(torch.isfinite(v).all())
+                     for v in sim.params.values())
+        require(finite, f"{label}: non-finite params")
+        say(f"{label} on {card}: {RING_ROUNDS} rounds, sec_per_round="
+            f"{sec / RING_ROUNDS:.4f} (sync on its draws "
+            f"{sync_sec / RING_ROUNDS:.4f}), launches {got} (each bubble's "
+            f"server section runs on zero pending), agg_norm="
+            f"{[float(x) for x in diags['agg_norm']]}, bytes_up="
+            f"{[float(x) for x in diags['bytes_up']]}" + (
+                f", live={[float(x) for x in diags['live']]}"
+                if "live" in diags else ""))
+        say(f"{label}: {k} bubble rows all 0; bitwise equal to the "
+            f"hand-unrolled client/server loop on the card and to "
+            f"run_rounds(2) x {RING_ROUNDS // 2}; card vs CPU replay of its "
+            f"draws: params and state margin {margin:.4f} (tol rtol "
+            f"{PARAM_RTOL} atol {PARAM_ATOL}: margin <= 1), agg_norm rtol "
+            f"1e-3, bytes_up and live equal")
+
+    # -- the host store against the device store, bitwise, at 40 clients
+    host_runs = (("fedncv", 0, lit), ("scaffold", 0, FL_BASE),
+                 ("fedncv+", 0, FL_BASE), ("fedncv", 2, lit),
+                 ("fedncv-dropout", 0, dict(lit, fault="dropout")))
+    for label, k, kw in host_runs:
+        kw = dict(kw, method=label.split("-")[0], staleness=k)
+        dev = Simulator(task, params0, train, FLConfig.make(**kw), seed=0)
+        host = Simulator(task, params0, train,
+                         FLConfig.make(**kw, store="host"), seed=0)
+        dropped = 0
+        for _ in range(3):
+            # each store draws from its own generators, as a user's run
+            d, dh = dev.draw_round(), host.draw_round()
+            require(torch.equal(d.idx, dh.idx) and torch.equal(d.sel, dh.sel),
+                    f"host-{label}: the two stores drew differently")
+            h_before = {n: tree_clone(host._host.get(n))
+                        for n in host._host_state_names}
+            rd = dev.run_round(draws=d)
+            rh = host.run_round(draws=dh)
+            require(rd == rh and sim_same(dev, host),
+                    f"host-{label}-k{k}: a round differs from the device "
+                    f"store's")
+            if d.plan is not None:
+                alive = d.plan["alive"]
+                for slot, u in enumerate(d.idx.tolist()):
+                    if float(alive[slot]) == 0.0:
+                        dropped += 1
+                        require(all(same_bits(row_of(v, u),
+                                              row_of(host._host.get(n), u))
+                                    for n, v in h_before.items()),
+                                f"host-{label}: a dropped client's row "
+                                f"was written")
+        # then 3 x 3 rounds by run_rounds, the stores taking turns
+        secs = {"device": [], "host": []}
+        for _ in range(HOST_REPS):
+            dd, sd, gd = counted(lambda: dev.run_rounds(3))
+            dh, sh, gh = counted(lambda: host.run_rounds(3))
+            require(gd == gh and all(np.array_equal(dd[x], dh[x])
+                                     for x in dd) and sim_same(dev, host),
+                    f"host-{label}-k{k}: run_rounds(3) differs from the "
+                    f"device store's (launches {gd} / {gh})")
+            secs["device"].append(sd / 3)
+            secs["host"].append(sh / 3)
+        m = host.host_metrics()
+        rounds = 3 + 3 * HOST_REPS
+        say(f"host-{label}-k{k} on {card}: {rounds} rounds, each round's "
+            f"params, state and diagnostics bitwise the device store's (3 "
+            f"by run_round, then run_rounds(3) x {HOST_REPS}), launches "
+            f"{gh} a run_rounds(3) as the device store's" + (
+                f", {dropped} dropped slots' rows not written"
+                if d.plan is not None else "") +
+            f"; sec_per_round {spread(secs['host'])} (device store "
+            f"{spread(secs['device'])}), staged "
+            f"{m['staged_bytes_in'] / rounds:.0f} B in and "
+            f"{m['staged_bytes_out'] / rounds:.0f} B out a round, "
+            f"overlap_frac {m['prefetch_overlap_frac']:.3f}")
+        host.close()
+
+    # -- the host store at scale: fedncv+ (an (M, N) table h) at 10,000
+    # clients, host against device
+    sims, stats = {}, {}
+    for store in ("device", "host"):
+        fl = FLConfig.make(method="fedncv+", **dict(FL_BASE,
+                                                    n_clients=SCALE_M),
+                           store=store)
+        t0 = time.perf_counter()
+        sims[store] = Simulator(task, params0,
+                                scale_world(np, world, SCALE_M), fl, seed=0)
+        torch.cuda.synchronize()
+        stats[store] = dict(build_s=time.perf_counter() - t0)
+        sims[store].run_rounds(1)   # the worker, the staging buffers
+    m0 = sims["host"].host_metrics()
+    secs = {"device": [], "host": []}
+    for _ in range(HOST_REPS):      # the stores take turns
+        for store, sim in sims.items():
+            _, sec, _ = counted(lambda: sim.run_rounds(SCALE_ROUNDS))
+            secs[store].append(sec / SCALE_ROUNDS)
+    for store, sim in sims.items():
+        m = sim.host_metrics()
+        staged = 0 if store == "device" else sum(
+            m[x] - m0[x] for x in ("staged_bytes_in", "staged_bytes_out"))
+        stats[store].update(
+            device_state_bytes=sim.device_state_bytes(),
+            host_state_bytes=sim.host_state_bytes(),
+            host_mem_peak=m["host_mem_peak"],
+            staged_bytes_per_round=staged / (HOST_REPS * SCALE_ROUNDS),
+            overlap_frac=m["prefetch_overlap_frac"])
+    dev, host = sims["device"], sims["host"]
+    require(same_bits(dev.params, host.params) and
+            same_bits(dev.h_sum, host.h_sum) and same_bits(dev.h, host.h),
+            f"fedncv+ at M = {SCALE_M}: the host store's params or h differ "
+            f"from the device store's")
+    host.close()
+    del dev, host, sims
+    torch.cuda.empty_cache()
+    small = Simulator(task, params0, scale_world(np, world, SMALL_M),
+                      FLConfig.make(method="fedncv+", **dict(
+                          FL_BASE, n_clients=SMALL_M), store="host"), seed=0)
+    small.run_rounds(1)
+    require(small.device_state_bytes() ==
+            stats["host"]["device_state_bytes"],
+            f"host store: device bytes {small.device_state_bytes()} at "
+            f"M = {SMALL_M}, {stats['host']['device_state_bytes']} at M = "
+            f"{SCALE_M}")
+    small.close()
+    for store, st in stats.items():
+        say(f"fedncv+ at M = {SCALE_M} under store={store} on {card}: "
+            f"1 + {HOST_REPS} x {SCALE_ROUNDS} rounds, sec_per_round "
+            f"{spread(secs[store])}, " + ", ".join(
+                f"{k}={v:.4f}" if isinstance(v, float) and v < 1e6 else
+                f"{k}={v:.0f}" for k, v in st.items()))
+    say(f"fedncv+ at M = {SCALE_M}: host params, h_sum and the whole h "
+        f"table bitwise the device store's; host device_state_bytes equal "
+        f"at M = {SMALL_M} and {SCALE_M} "
+        f"({stats['host']['device_state_bytes']} B)")
+
+    # -- checkpoints: save at round 3 with K = 2, restore into a fresh
+    # simulator, 3 more rounds == 6 uninterrupted, generators included
+    for store in ("device", "host"):
+        fl = FLConfig.make(**lit, staleness=2, store=store)
+        whole = Simulator(task, params0, train, fl, seed=0)
+        rows = whole.run_rounds(RING_ROUNDS)
+        first = Simulator(task, params0, train, fl, seed=0)
+        rows1 = first.run_rounds(3)
+        directory = str(ROOT / "build" / "chip_smoke_ckpt" / store)
+        shutil.rmtree(directory, ignore_errors=True)
+        t0 = time.perf_counter()
+        checkpoint.save_sim(directory, first)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        size = Path(directory, "3.ckpt").stat().st_size
+        resumed = Simulator(task, params0, train, fl, seed=0)
+        t0 = time.perf_counter()
+        checkpoint.restore_sim(directory, resumed)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        rows2 = resumed.run_rounds(3)
+        gens = all(torch.equal(g.get_state(), resumed._generators()[n]
+                               .get_state())
+                   for n, g in whole._generators().items())
+        require(sim_same(whole, resumed) and gens and all(
+            np.array_equal(v, np.concatenate([rows1[x], rows2[x]]))
+            for x, v in rows.items()),
+            f"checkpoint ({store}): the resumed run differs from the "
+            f"uninterrupted one")
+        refusals = []
+        for bad in (dict(staleness=1, store=store),
+                    dict(staleness=2, store="host" if store == "device"
+                         else "device")):
+            try:
+                checkpoint.restore_sim(directory, Simulator(
+                    task, params0, train, FLConfig.make(**lit, **bad),
+                    seed=0))
+            except ValueError as e:
+                refusals.append(str(e)[:70])
+            else:
+                require(False, f"checkpoint ({store}): {bad} restored")
+        shutil.rmtree(directory)
+        for s in (whole, first, resumed):
+            s.close()
+        say(f"checkpoint (store={store}, K = 2, after round 3) on {card}: "
+            f"{size} B, save {save_ms:.2f} ms, restore {restore_ms:.2f} ms "
+            f"(host clock, file warm); 3 more rounds bitwise the "
+            f"uninterrupted run's (params, state, rows, the 3 generators' "
+            f"states); refused with ValueError: {refusals}")
+    return counts
+
+
+def tree_clone(tree):
+    from repro_torch.utils.tree_math import tree_map
+    return tree_map(lambda x: x.clone(), tree)
+
+
+def row_of(tree, u):
+    from repro_torch.utils.tree_math import tree_map
+    return tree_map(lambda x: x[u], tree)
+
+
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 # flash kernel vs its plain version, (rtol, atol): f32, the reference
 # kernel tests' 2e-4; bf16, both compute in f32 and round to bf16 once, so
@@ -1868,6 +2213,11 @@ def main() -> int:
                                          card, world).items():
         counts.setdefault(name, n)
     phase_s["fl slice"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    ring_counts = pipeline_store_ckpt_phase(torch, np, kernels, card, world)
+    say(f"ring, host store and checkpoint runs: launches {ring_counts}")
+    phase_s["ring + host store + checkpoints"] = \
+        time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     del world
     torch.cuda.empty_cache()

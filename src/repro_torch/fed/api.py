@@ -14,9 +14,9 @@ Ported so far: all nine methods the reference registers (`fedavg`,
 `external`), the aggregators `mean`, `trimmed_mean`, `median` and
 `norm_clip`, the codecs `identity`, `bf16`, `int8` and `int4`, all six
 fault models (`none`, `dropout`, `markov`, `straggler`, `byzantine`,
-`external`), tracker `none` and store `device`.  A name the reference
-has but the port does not yet raises KeyError saying so; it is never
-ignored.
+`external`), both stores (`device`, `host`; `fed/store.py`) and
+tracker `none`.  A name the reference has but the port does not yet
+raises KeyError saying so; it is never ignored.
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ from repro_torch.fed import aggregators
 from repro_torch.fed import faults
 from repro_torch.fed import methods as M
 from repro_torch.fed import sampling
+from repro_torch.fed import store as store_lib
 from repro_torch.utils.tree_math import (ravel_stack, tree_axpy, tree_leaves,
                                          tree_map, tree_zeros_like)
 
@@ -129,10 +130,9 @@ _REGISTRY: dict[str, FedMethod] = {}
 # names the reference registers that the port does not have yet
 _NOT_PORTED = {
     "tracker": ("composite", "csv", "jsonl", "memory", "stdout"),
-    "store": ("host",),
 }
 # the ported option-less strategies of the other registries
-_PORTED = {"tracker": ("none",), "store": ("device",)}
+_PORTED = {"tracker": ("none",)}
 
 
 def not_ported(kind: str, name: str, have) -> KeyError:
@@ -164,7 +164,7 @@ def registered_trackers() -> tuple[str, ...]:
 
 
 def registered_stores() -> tuple[str, ...]:
-    return _PORTED["store"]
+    return store_lib.registered_stores()
 
 
 def _check_name(kind: str, name: str):
@@ -301,7 +301,7 @@ class FLConfig:
     server_lr: float = 1.0
     codec: str = "identity"
     codec_opts: dict = dataclasses.field(default_factory=dict)
-    staleness: int = 0                # 0 = synchronous rounds
+    staleness: int = 0                # 0 = sync; K >= 1: depth-K ring
     sampler: str = "uniform"
     sampler_opts: dict = dataclasses.field(default_factory=dict)
     aggregator: str = "mean"
@@ -326,9 +326,6 @@ class FLConfig:
         if not isinstance(self.staleness, int) or self.staleness < 0:
             raise ValueError(f"staleness must be an int >= 0 (pipeline "
                              f"depth K), got {self.staleness!r}")
-        if self.staleness:
-            raise NotImplementedError("pipelined rounds (staleness >= 1) "
-                                      "are not ported to repro_torch yet")
         if self.track_variance:
             raise NotImplementedError("track_variance is not ported to "
                                       "repro_torch yet")
@@ -341,12 +338,13 @@ class FLConfig:
         if method.validate is not None:
             method.validate(self.mc)
         comm.validate_codec_opts(self.codec, self.codec_opts)
-        for kind, name, opts in (("tracker", self.tracker, self.tracker_opts),
-                                 ("store", self.store, self.store_opts)):
-            _check_name(kind, name)
-            if opts:
-                raise TypeError(f"{kind} option(s) {sorted(opts)} are not "
-                                f"used by {kind} '{name}'; it has none")
+        _check_name("tracker", self.tracker)
+        if self.tracker_opts:
+            raise TypeError(f"tracker option(s) {sorted(self.tracker_opts)} "
+                            f"are not used by tracker '{self.tracker}'; it "
+                            f"has none")
+        store_lib.resolve_opts(store_lib.get_store(self.store),
+                               self.store_opts)
         sampling.resolve_opts(sampling.get_sampler(self.sampler),
                               self.sampler_opts)
         agg = aggregators.get_aggregator(self.aggregator)
@@ -382,8 +380,7 @@ class FLConfig:
         or fault model's."""
         m = get_method(method)
         comm.check_codec_name(codec)
-        for kind, name in (("tracker", tracker), ("store", store)):
-            _check_name(kind, name)
+        _check_name("tracker", tracker)
         subsystems = (
             ("method", method, COMMON_OPTIONS | set(m.options), None),
             ("codec", codec, set(comm.CODECS[codec].options), "codec_opts"),
@@ -394,6 +391,8 @@ class FLConfig:
              "agg_opts"),
             ("fault", fault, set(faults.get_fault(fault).options),
              "fault_opts"),
+            ("store", store,
+             set(store_lib.get_store(store).options), "store_opts"),
         )
         for name in sorted(opts):
             claims = [s for s in subsystems if name in s[2]]
@@ -426,6 +425,7 @@ class FLConfig:
                         "sampler_opts")
         a_opts = routed(subsystems[3][2], agg_opts, "aggregator", "agg_opts")
         f_opts = routed(subsystems[4][2], fault_opts, "fault", "fault_opts")
+        st_opts = routed(subsystems[5][2], store_opts, "store", "store_opts")
         method_opts = {k: v for k, v in opts.items() if k in subsystems[0][2]}
         return cls(method=method, n_clients=n_clients, cohort=cohort,
                    k_micro=k_micro, micro_batch=micro_batch,
@@ -435,7 +435,7 @@ class FLConfig:
                    aggregator=aggregator, agg_opts=a_opts,
                    fault=fault, fault_opts=f_opts,
                    tracker=tracker, tracker_opts=dict(tracker_opts or {}),
-                   store=store, store_opts=dict(store_opts or {}),
+                   store=store, store_opts=st_opts,
                    track_variance=track_variance,
                    mc=M.MethodConfig(name=method, **method_opts))
 

@@ -47,6 +47,21 @@ with `seed ^ faults.FAULT_SALT`, and u from a generator on the simulator's
 device.  A stateful sampler or fault model reads its state on the host, so
 such a draw waits for the previous round.
 
+Pipelined rounds (`fl.staleness = K >= 1`, DESIGN.md §12): round r
+issues its client section against the current params, and the server
+section applies the pending cohort that round r - K issued.  The in-flight
+pendings are a list on the simulator (`_ring`, oldest first, at most K),
+so chunked driving follows one run's trajectory.  The first K rounds are
+warmup bubbles: the server section runs on all-zero pending buffers, its
+params and state are dropped and every diagnostic key reads 0.
+
+The host store (`fl.store = "host"`, `fed/store.py`, DESIGN.md §11): the
+per-client `StateField` tables and the images and labels stay in host
+memory, and each round works on cohort-sized windows that a prefetch
+worker stages; round r's rows are written back before round r + 1's are
+gathered.  Per round its params, state and diagnostics equal the device
+store's bitwise, at every K.
+
 The simulator runs on the CUDA device unless `device` says otherwise; it
 raises when no card is present instead of carrying on on the CPU.  Its
 rounds and `evaluate` run inside `utils.device.deterministic_f32`, whatever
@@ -57,6 +72,7 @@ same draws give the same bits run after run.
 from __future__ import annotations
 
 import typing as tp
+import weakref
 
 import numpy as np
 import torch
@@ -68,10 +84,11 @@ from repro_torch.fed import api
 from repro_torch.fed import faults
 from repro_torch.fed import methods as M
 from repro_torch.fed import sampling
+from repro_torch.fed import store as store_lib
 from repro_torch.fed.api import FLConfig  # noqa: F401  (re-export)
 from repro_torch.utils.device import deterministic_f32, resolve_device
-from repro_torch.utils.tree_math import (flat_spec, tree_bytes, tree_map,
-                                         unravel)
+from repro_torch.utils.tree_math import (flat_spec, tree_bytes, tree_leaves,
+                                         tree_map, unravel)
 
 
 def _tensor(x, dtype, device=None):
@@ -105,13 +122,30 @@ class Simulator:
         self.task, self.fl = task, fl
         self.method = api.get_method(fl.method)
         self._fields = self.method.state_spec(task, fl.mc)
+        # where the per-client tables and the client-indexed data live
+        self.store = store_lib.get_store(fl.store)
+        self._store_opts = store_lib.resolve_opts(self.store, fl.store_opts)
+        self._host_mode = self.store.host_resident
         self.params = tree_map(
             lambda x: torch.as_tensor(x, dtype=torch.float32).to(dev).clone(),
             params)
-        self.data = {"images": _tensor(data["images"], torch.float32, dev),
-                     "labels": _tensor(data["labels"], torch.int64, dev),
-                     "client_sizes": _tensor(data["client_sizes"],
-                                             torch.int64, dev)}
+        sizes = _tensor(data["client_sizes"], torch.int64, dev)
+        if self._host_mode:
+            # images and labels in the host tables; client_sizes (M
+            # scalars) stays on the device for the round's weights
+            self._host = self.store.make_tables(self._store_opts,
+                                                dev.type == "cuda")
+            self._host.adopt("data:images", _tensor(data["images"],
+                                                    torch.float32))
+            self._host.adopt("data:labels", _tensor(data["labels"],
+                                                    torch.int64))
+            self.data = {"client_sizes": sizes}
+        else:
+            self._host = None
+            self.data = {"images": _tensor(data["images"], torch.float32,
+                                           dev),
+                         "labels": _tensor(data["labels"], torch.int64, dev),
+                         "client_sizes": sizes}
         # the draw runs on the host generator; its index tables stay there
         self._pool = _tensor(data["client_idx"], torch.int64)
         self._sizes_host = _tensor(data["client_sizes"], torch.int64)
@@ -149,8 +183,21 @@ class Simulator:
         self._client_update = self._client_fn()
         self.agg = aggregators.get_aggregator(fl.aggregator)
         self._agg_opts = aggregators.resolve_opts(self.agg, fl.agg_opts)
-        self._state = api.init_state(self._fields, self.params, task, fl.mc,
-                                     fl.n_clients)
+        self._host_state_names: list = []
+        if self._host_mode:
+            # per-client tables built host-side from one init row each;
+            # the global fields stay in the device state dict
+            self._state = {}
+            for f in self._fields:
+                one = f.init(self.params, task, fl.mc)
+                if f.per_client:
+                    self._host.add(f.name, one, fl.n_clients)
+                    self._host_state_names.append(f.name)
+                else:
+                    self._state[f.name] = one
+        else:
+            self._state = api.init_state(self._fields, self.params, task,
+                                         fl.mc, fl.n_clients)
         for key, owner, opts in (("sampler", self.smp, self._smp_opts),
                                  ("faults", self.fm, self._fm_opts)):
             if not owner.stateful:
@@ -161,6 +208,11 @@ class Simulator:
                                  f"StateField")
             self._state[key] = _to(owner.init_state(opts, fl.n_clients), dev)
         self.round_idx = 0
+        # the in-flight pendings of a pipelined run, oldest first
+        self._ring: list = []
+        # the host store's prefetch worker and staging copies (lazily)
+        self._prefetcher = None
+        self._staging = None
 
     def _client_fn(self):
         """The client pass with its wrappers, innermost first: the fault
@@ -182,10 +234,13 @@ class Simulator:
 
     def __getattr__(self, name):
         # state-field names double as read-only attributes (sim.alphas,
-        # sim.c_global, sim.personal, sim.h, ...)
+        # sim.c_global, sim.personal, sim.h, ...); under the host store a
+        # per-client field reads as its host table
         state = self.__dict__.get("_state")
         if state is not None and name in state:
             return state[name]
+        if name in self.__dict__.get("_host_state_names", ()):
+            return self.__dict__["_host"].get(name)
         raise AttributeError(
             f"{type(self).__name__!s} has no attribute {name!r}")
 
@@ -197,7 +252,34 @@ class Simulator:
         if state is not None and name in state:
             self._state = dict(state, **{name: _to(value, self.device)})
             return
+        if name in self.__dict__.get("_host_state_names", ()):
+            self._host.set(name, value)
+            return
         super().__setattr__(name, value)
+
+    def _get_state(self):
+        """The whole state dict; under the host store the per-client
+        tables are merged in as their host tensors."""
+        state = dict(self._state)
+        for n in self._host_state_names:
+            state[n] = self._host.get(n)
+        return state
+
+    def _set_state(self, state):
+        """Install a whole state dict (checkpoint restore); host tables are
+        written in place."""
+        dev = {}
+        for k, v in state.items():
+            if k in self._host_state_names:
+                self._host.set(k, v)
+            else:
+                dev[k] = _to(v, self.device)
+        self._state = dev
+
+    def _generators(self):
+        """The draw generators by checkpoint name: the cohort and rows, the
+        fault plan, and the codec's uniforms (on the device)."""
+        return dict(gen=self._gen, fgen=self._fgen, ugen=self._ugen)
 
     # ------------------------------------------------------------------
     # one round
@@ -273,13 +355,20 @@ class Simulator:
         t = x if torch.is_tensor(x) else torch.tensor(np.asarray(x))
         return t.to(self.device, torch.float32)
 
+    @staticmethod
+    def _index(d, dev):
+        return d.to(dev, torch.int64) if torch.is_tensor(d) else \
+            torch.from_numpy(np.array(d, dtype=np.int64)).to(dev)
+
     @deterministic_f32()
-    def _client_section_local(self, params, state, draws):
+    def _client_section_local(self, params, state, draws, batch=None):
+        """The round's client section.  `batch` (host store): the staged
+        (cohort, K, b, ...) batch; `state` then holds the cohort's windows,
+        addressed by slot (pending["idx"] is arange(cohort)), and the
+        global client ids ride pending["gidx"]."""
         fl, dev = self.fl, self.device
         draws = Draws(*draws)
-        idx, sel = (d.to(dev, torch.int64) if torch.is_tensor(d)
-                    else torch.from_numpy(np.array(d, dtype=np.int64)).to(
-                        dev) for d in draws[:2])
+        idx = self._index(draws.idx, dev)
         u = self._draw_uniforms() if draws.u is None else self._f32(draws.u)
         plan, fstate = draws.plan, draws.fault_state
         if self._fault_on and plan is None:
@@ -302,14 +391,20 @@ class Simulator:
             pending.update(alive=plan["alive"], live=live)
         if fstate is not None:
             pending["fault_state"] = _to(fstate, dev)
-        batches = self._gather_batch(sel)
-        cstates = self._cohort_cstates(state, idx)
+        if batch is None:
+            batches = self._gather_batch(self._index(draws.sel, dev))
+            slots = idx
+        else:
+            batches = batch
+            slots = torch.arange(fl.cohort, device=dev)
+            pending["gidx"] = idx
+        cstates = self._cohort_cstates(state, slots)
         if self._fm_corrupts or self._fm_flips:
             cstates[faults.FAULT_KEY] = dict(gscale=plan["gscale"],
                                              flip=plan["flip"])
         ctx = api.MethodCtx(self.task, fl.mc)
         outs = self._client_update(ctx, params, cstates, batches, u)
-        pending.update(idx=idx, sizes=sizes, weights=weights,
+        pending.update(idx=slots, sizes=sizes, weights=weights,
                        grads=outs.grad, cstates=outs.cstate, aux=outs.aux)
         if invp is not None:
             pending["invp"] = invp
@@ -328,9 +423,13 @@ class Simulator:
         new_state = dict(state)
         if "fault_state" in pending:
             new_state["faults"] = pending["fault_state"]
+        # `idx` addresses the rows in the tables this section sees: the
+        # global ids under the device store, window slots under the host
+        # store, whose pending carries the global ids as "gidx"
         if self.smp.update is not None:
             new_state["sampler"] = self.smp.update(
-                self._smp_opts, new_state["sampler"], idx, sizes, aux)
+                self._smp_opts, new_state["sampler"],
+                pending.get("gidx", idx), sizes, aux)
         # the dense per-client uploads, decoded once, only if the method
         # reduces them itself
         dense = None
@@ -376,36 +475,305 @@ class Simulator:
             diag["live"] = torch.sum(alive)
         return params, new_state, diag
 
+    def _bubble(self, params, state, pending, r):
+        """A warmup step of the pipeline: the server section runs on
+        all-zero pending buffers shaped like `pending`; its params and
+        state are dropped, and every diagnostic key is kept and reads 0."""
+        zero = tree_map(torch.zeros_like, pending)
+        _, _, diag = self._server_section(params, state, zero, r)
+        return {k: torch.zeros((), dtype=torch.float32, device=self.device)
+                for k in diag}
+
     def _round(self, draws):
+        """One device-store round: sync, or one step of the depth-K ring
+        (issue this round's cohort, apply the one issued K rounds ago)."""
         self.round_idx += 1
+        r = self.round_idx
         pending = self._client_section_local(self.params, self._state, draws)
-        self.params, self._state, diag = self._server_section(
-            self.params, self._state, pending, self.round_idx)
+        if not self.fl.staleness:
+            self.params, self._state, diag = self._server_section(
+                self.params, self._state, pending, r)
+            return diag
+        if len(self._ring) == self.fl.staleness:
+            self.params, self._state, diag = self._server_section(
+                self.params, self._state, self._ring.pop(0), r)
+        else:
+            diag = self._bubble(self.params, self._state, pending, r)
+        self._ring.append(pending)
         return diag
 
     def run_round(self, draws=None):
-        """One synchronous round; `draws` (a `Draws` or a tuple of its
-        leading fields) replays a draw.  Returns the round's scalar
-        diagnostics as floats."""
+        """One round; `draws` (a `Draws` or a tuple of its leading fields)
+        replays a draw.  Returns the round's scalar diagnostics as
+        floats."""
+        if self._host_mode:
+            rows = self._run_host(1, None if draws is None else [draws])
+            return {k: float(v[0]) for k, v in rows.items()}
         diag = self._round(self.draw_round() if draws is None else draws)
         return {k: float(v) for k, v in diag.items()}
 
     def run_rounds(self, n, draws=None):
         """n rounds; `draws` is a sequence of n draws or None.
         Returns the stacked per-round diagnostics as float32 numpy arrays
-        (one host sync, after the last round)."""
+        (one host sync, after the last round).  A pipelined run carries its
+        in-flight cohorts across calls: `run_rounds(2)` three times follows
+        `run_rounds(6)`."""
         if n <= 0:
             return {}
         if draws is not None and len(draws) != n:
             raise ValueError(f"{len(draws)} draws for {n} rounds")
-        rows = [self._round(self.draw_round() if draws is None
-                            else draws[i]) for i in range(n)]
+        if self._host_mode:
+            return self._run_host(n, draws)
+        return self._stack([self._round(self.draw_round() if draws is None
+                                        else draws[i]) for i in range(n)])
+
+    def _stack(self, rows):
         out = {}
         for k in rows[0]:
             vals = [torch.as_tensor(r[k], dtype=torch.float32,
                                     device=self.device) for r in rows]
             out[k] = torch.stack(vals).cpu().numpy()
         return out
+
+    # ------------------------------------------------------------------
+    # the host store's rounds: the cohort's windows and batch are staged
+    # by the prefetch worker; the rows a round wrote go back to the host
+    # tables on the worker, before the next cohort's are gathered
+    # ------------------------------------------------------------------
+    @property
+    def _draws_ahead(self):
+        """Whether round r + 1's draw can be made before round r runs: not
+        when it reads a sampler or fault state that round r updates."""
+        return not (self.smp.stateful or self.smp.update is not None
+                    or (self._fault_on and self.fm.stateful))
+
+    def _window_like(self):
+        """(shape, dtype) of each host table's cohort window."""
+        c = self.fl.cohort
+        return {n: tree_map(lambda t: ((c,) + tuple(t.shape[1:]), t.dtype),
+                            self._host.get(n))
+                for n in self._host_state_names}
+
+    def _host_stage_batch(self, draws):
+        """Stage one round's (cohort, K, b, ...) batch rows.  The data never
+        changes, so this job may run before the previous round's rows are
+        written back."""
+        fl = self.fl
+        sel = store_lib.row_ids(draws.sel)
+        tables = {k: self._host.get("data:" + k) for k in ("images",
+                                                          "labels")}
+        slot, out = self._staging.buffers(
+            {k: ((sel.numel(),) + tuple(t.shape[1:]), t.dtype)
+             for k, t in tables.items()})
+        for k, t in tables.items():
+            torch.index_select(t, 0, sel, out=out[k])
+        lead = (fl.cohort, fl.k_micro, fl.micro_batch)
+        return self._staging.ship(slot, {k: v.view(lead + tuple(v.shape[1:]))
+                                         for k, v in out.items()})
+
+    def _host_stage(self, draws, swin=False):
+        """Stage the cohort's state windows and, on a pipelined run, the
+        windows of the cohort the server section applies (`swin`: its
+        global ids; None: zeros, a bubble)."""
+        idx = store_lib.row_ids(draws.idx)
+        like = dict(windows=self._window_like())
+        if swin is not False:
+            like["swin"] = like["windows"]
+        slot, out = self._staging.buffers(like)
+        self._host.gather(self._host_state_names, idx, out=out["windows"])
+        if swin is None:
+            tree_map(torch.Tensor.zero_, out["swin"])
+        elif swin is not False:
+            self._host.gather(self._host_state_names, swin, out=out["swin"])
+        return dict(idx=idx, staged=self._staging.ship(slot, out))
+
+    def _host_scatter(self, gidx, wout, alive, event):
+        """Write one round's windows back to the host tables once the round
+        that wrote them (`event`) is done; dropped clients' rows are not
+        written."""
+        tree = dict(w=wout) if alive is None else dict(w=wout, alive=alive)
+        rows = self._staging.fetch(tree, after=event)
+        for n in self._host_state_names:
+            self._host.scatter(n, gidx, rows["w"][n], rows.get("alive"))
+
+    def _round_done(self):
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    def _ensure_prefetcher(self):
+        if self._prefetcher is None:
+            # K in-flight cohorts want K + 1 staged slices before the
+            # queue pushes back
+            depth = max(2, self.fl.staleness + 1)
+            self._prefetcher = store_lib.CohortPrefetcher(
+                enabled=bool(self._store_opts["prefetch"]), depth=depth)
+            self._staging = store_lib.Staging(self.device,
+                                              slots=2 * depth + 1)
+            weakref.finalize(self, self._prefetcher.close)
+        return self._prefetcher
+
+    def close(self):
+        """Stop the host store's prefetch worker (a later round starts a
+        new one)."""
+        if self._prefetcher is not None:
+            self._prefetcher.close()
+            self._prefetcher = None
+
+    def _run_host(self, n, draws):
+        """n host-store rounds through the prefetch worker.  Two jobs a
+        round: the batch rows of round i, staged as soon as round i is
+        drawn (while round i - 1 runs, when round i can be drawn ahead:
+        its draw reads no state that round i - 1 updates), and the state
+        job, which writes round i - 1's rows back and then stages round
+        i's windows.  Same draws, same sections, same order as the device
+        store: the same bits."""
+        k, pf = self.fl.staleness, self._ensure_prefetcher()
+        ds = [None if draws is None else Draws(*d) for d in
+              (draws if draws is not None else [None] * n)]
+        ahead = draws is not None or self._draws_ahead
+        batches, states = [None] * n, [None] * n
+
+        def draw(i):
+            if ds[i] is None:
+                ds[i] = self.draw_round()
+            d = ds[i]
+            batches[i] = pf.submit(lambda: self._host_stage_batch(d))
+
+        def state_job(i, scatter, swin):
+            d = ds[i]
+
+            def run():
+                if scatter is not None:
+                    self._host_scatter(*scatter)
+                return self._host_stage(d, swin)
+            return run
+
+        def head():
+            return False if not k else (
+                self._ring[0]["gidx"].cpu() if len(self._ring) == k
+                else None)
+
+        draw(0)
+        states[0] = pf.submit(state_job(0, None, head()))
+        rows, last = [], None
+        for i in range(n):
+            if ahead and i + 1 < n:
+                draw(i + 1)
+            batch = batches[i]().ready()
+            buf = states[i]()
+            staged = buf["staged"].ready()
+            self.round_idx += 1
+            r = self.round_idx
+            pending = self._client_section_local(
+                self.params, {**self._state, **staged["windows"]}, ds[i],
+                batch=batch)
+            scatter = None
+            if not k:
+                applied = pending
+                state_in = {**self._state, **staged["windows"]}
+            elif len(self._ring) == k:
+                applied = self._ring.pop(0)
+                state_in = {**self._state, **staged["swin"]}
+            else:
+                applied = None
+                diag = self._bubble(self.params,
+                                    {**self._state, **staged["swin"]},
+                                    pending, r)
+            if applied is not None:
+                params, state, diag = self._server_section(
+                    self.params, state_in, applied, r)
+                wout = {nm: state.pop(nm) for nm in self._host_state_names}
+                self.params, self._state = params, state
+                scatter = (applied["gidx"] if k else buf["idx"], wout,
+                           applied.get("alive"), self._round_done())
+            if k:
+                self._ring.append(pending)
+            rows.append(diag)
+            if i + 1 < n:
+                if not ahead:
+                    draw(i + 1)
+                states[i + 1] = pf.submit(state_job(i + 1, scatter, head()))
+            elif scatter is not None:
+                last = scatter
+        if last is not None:
+            # the chunk's end: the tables hold every applied round
+            pf.submit(lambda: self._host_scatter(*last))()
+        return self._stack(rows)
+
+    def host_metrics(self) -> dict:
+        """The host store's counters: peak host RSS, the share of staging
+        time the rounds did not wait for, and the bytes staged to and
+        from the device so far."""
+        pf, st = self._prefetcher, self._staging
+        return dict(
+            host_mem_peak=float(store_lib.host_mem_peak()),
+            prefetch_overlap_frac=0.0 if pf is None else pf.overlap_frac(),
+            staged_bytes_in=0 if st is None else st.bytes_in,
+            staged_bytes_out=0 if st is None else st.bytes_out)
+
+    def device_state_bytes(self):
+        """Bytes of device-resident run state: params and the state dict
+        (and the resident data under the device store).  Under the host
+        store it holds no (M, N) table, so it does not grow with M beyond
+        the sampler's and fault model's M-scalars."""
+        trees = [self.params, self._state]
+        if not self._host_mode:
+            trees.append(self.data)
+        return int(sum(x.numel() * x.element_size() for t in trees
+                       for x in tree_leaves(t)))
+
+    def host_state_bytes(self):
+        """Bytes held by the host tables (0 under the device store)."""
+        return 0 if self._host is None else self._host.nbytes()
+
+    # ------------------------------------------------------------------
+    # the in-flight pipeline as checkpoint state
+    # ------------------------------------------------------------------
+    def pipeline_state(self):
+        """The in-flight pendings, dict(ring=[pending, ...]) oldest first
+        (and, under the host store, pidx: the (L, cohort) global ids of
+        their cohorts), or None when nothing is in flight."""
+        if not self.fl.staleness or not self._ring:
+            return None
+        pipe = dict(ring=list(self._ring))
+        if self._host_mode:
+            pipe["pidx"] = torch.stack([p["gidx"] for p in self._ring])
+        return pipe
+
+    def pipeline_template(self, n_inflight=None):
+        """A tree shaped like `pipeline_state()` with `n_inflight` pendings
+        (default K), from one client section on a draw made with the
+        generators' states put back afterwards."""
+        n = self.fl.staleness if n_inflight is None else int(n_inflight)
+        gens = {k: g.get_state() for k, g in self._generators().items()}
+        try:
+            d = self.draw_round()
+            if self._host_mode:
+                self._ensure_prefetcher()
+                windows = self._host_stage(d)["staged"].ready()["windows"]
+                pending = self._client_section_local(
+                    self.params, {**self._state, **windows}, d,
+                    batch=self._host_stage_batch(d).ready())
+            else:
+                pending = self._client_section_local(self.params,
+                                                     self._state, d)
+        finally:
+            for k, g in self._generators().items():
+                g.set_state(gens[k])
+        zero = tree_map(torch.zeros_like, pending)
+        pipe = dict(ring=[zero] * n)
+        if self._host_mode:
+            pipe["pidx"] = torch.zeros((n, self.fl.cohort), dtype=torch.int64,
+                                       device=self.device)
+        return pipe
+
+    def set_pipeline_state(self, pipe):
+        """Install a restored pipeline (None: a fresh one, K bubbles)."""
+        self._ring = [] if pipe is None else [_to(p, self.device)
+                                              for p in pipe["ring"]]
 
     # ------------------------------------------------------------------
     # evaluation: padded, chunked, one vmapped pass per chunk
@@ -445,14 +813,17 @@ class Simulator:
 
         Each client's shard is cyclically padded to the global n_max, and
         padded slots are excluded from the accuracy by the -1-label mask and
-        the size rescale; `chunk` clients are evaluated per vmapped pass."""
+        the size rescale; `chunk` clients are evaluated per vmapped pass.
+        Under the host store the eval set stays on the host and only each
+        chunk's (chunk, n_max, ...) window reaches the device."""
         dev = self.device
-        pool = _tensor(eval_data["client_idx"], torch.int64, dev)
+        gdev = torch.device("cpu") if self._host_mode else dev
+        pool = _tensor(eval_data["client_idx"], torch.int64, gdev)
         m, n_max = pool.shape
-        sizes_all = _tensor(eval_data["client_sizes"], torch.int64, dev)
-        data = {"images": _tensor(eval_data["images"], torch.float32, dev),
-                "labels": _tensor(eval_data["labels"], torch.int64, dev)}
-        ar = torch.arange(n_max, device=dev)[None, :]
+        sizes_all = _tensor(eval_data["client_sizes"], torch.int64, gdev)
+        data = {"images": _tensor(eval_data["images"], torch.float32, gdev),
+                "labels": _tensor(eval_data["labels"], torch.int64, gdev)}
+        ar = torch.arange(n_max, device=gdev)[None, :]
         acc_sum, n_valid = 0.0, 0.0
         for lo in range(0, m, chunk):
             hi = min(lo + chunk, m)
@@ -462,7 +833,9 @@ class Simulator:
             feats = {k: v[sel] for k, v in data.items()}
             labels_eval = torch.where(ar < sizes[:, None], feats["labels"],
                                       torch.full_like(feats["labels"], -1))
-            personal = tree_map(lambda x: x[lo:hi], self.personal) \
+            feats = _to(feats, dev)
+            labels_eval, sizes = labels_eval.to(dev), sizes.to(dev)
+            personal = tree_map(lambda x: x[lo:hi].to(dev), self.personal) \
                 if self.method.personal else None
             s, v = self._eval_core(self.params, personal, feats, labels_eval,
                                    sizes, personalize_steps)

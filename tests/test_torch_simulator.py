@@ -348,7 +348,7 @@ def test_flconfig_errors_match_reference(kw, err):
     dict(tracker="csv"), dict(codec="topk"), dict(tracker="memory"),
     dict(codec="lowrank"), dict(tracker="stdout"),
     dict(tracker="jsonl"),
-    dict(store="host"),
+    dict(tracker="composite"),
 ])
 def test_unported_names_raise_not_ported(kw):
     JFLConfig.make(**dict(dict(n_clients=6, cohort=3), **kw))   # reference ok
