@@ -78,7 +78,18 @@ without the final `ok` line:
                the host store's device bytes the same at 1,000 clients),
                and a checkpoint at round 3 of a K = 2 run under both
                stores that must resume bitwise, generators included, and
-               refuse another depth or store.
+               refuse another depth or store; then `codec_phase`: the
+               stateful wires with per-client error feedback, 3 rounds
+               each (fedncv over topk at ratio 0.1 and 0.16 and over
+               lowrank at rank 8, fedavg over topk, fedncv+ over topk,
+               median over topk, dropout 0.5 over topk), each printing
+               bytes_up, sec_per_round, device ms and operations a round
+               and launches a round, a second card run bitwise equal and
+               a CPU replay round by round from the card's state; the host
+               store against the device store under topk and lowrank (6
+               rounds, bitwise), the ring at K = 1 and 2 under topk against
+               the unrolled loop (bitwise), and a K = 1 checkpoint after
+               round 2 under topk resumed bitwise.
                Checks the launch
                counts, `bytes_up`, finiteness, and the parameters against
                a CPU replay of the same draws through the plain versions
@@ -1356,6 +1367,23 @@ SMALL_M = 1_000                # ... against which its device bytes stay
 HOST_REPS = 3                  # timed turns of each store, interleaved
 
 
+def count_launches(torch, kernels, counts, fn):
+    """fn() between two synchronizations, every kernel's count set to 0
+    first; adds the launches to `counts`.  Returns (fn's result, seconds,
+    launches by kernel)."""
+    torch.cuda.synchronize()
+    for f in kernels.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    got = {n: f.launches for n, f in kernels.items()}
+    for n, c in got.items():
+        counts[n] += c
+    return out, sec, got
+
+
 def spread(xs):
     """'median [min, max]' of a few times."""
     xs = sorted(xs)
@@ -1429,17 +1457,7 @@ def pipeline_store_ckpt_phase(torch, np, kernels, card, world):
     counts = {n: 0 for n in kernels}
 
     def counted(fn):
-        torch.cuda.synchronize()
-        for f in kernels.values():
-            f.launches = 0
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        got = {n: f.launches for n, f in kernels.items()}
-        for n, c in got.items():
-            counts[n] += c
-        return out, sec, got
+        return count_launches(torch, kernels, counts, fn)
 
     # -- the ring: FedNCV beta = 1 at K = 1, 2, 3; K = 2 with dropout and
     # the importance sampler
@@ -1679,6 +1697,242 @@ def tree_clone(tree):
 def row_of(tree, u):
     from repro_torch.utils.tree_math import tree_map
     return tree_map(lambda x: x[u], tree)
+
+
+# the stateful wire (phase 4, after the ring): topk and lowrank with their
+# per-client error feedback at the slice's protocol, 3 rounds each, beside
+# the identity wire timed in the same call: (label, options over FL_KW at
+# beta = 0, launches a round of each kernel)
+CODEC_RUNS = (
+    ("fedncv-identity", {}, dict(rloo_combine=2, ncv_weighted_sum=1)),
+    ("fedncv-topk", dict(codec="topk"),
+     dict(rloo_combine=2, ncv_weighted_sum=1)),
+    ("fedncv-topk-0.16", dict(codec="topk", ratio=0.16),
+     dict(rloo_combine=2, ncv_weighted_sum=1)),
+    ("fedncv-lowrank", dict(codec="lowrank", rank=8),
+     dict(rloo_combine=2)),
+    ("fedavg-topk", dict(method="fedavg", codec="topk"),
+     dict(ncv_weighted_sum=1)),
+    ("fedncv+-topk", dict(method="fedncv+", codec="topk"), {}),
+    ("median-topk", dict(aggregator="median", codec="topk"),
+     dict(rloo_combine=2, rank_band_mean=1)),
+    ("dropout-topk", dict(fault="dropout", drop_rate=0.5, codec="topk"),
+     dict(rloo_combine=2, ncv_weighted_sum=1)),
+)
+# bytes a client puts on the wire at N = 62,006, the reference's accounting
+# (topk: k = round(ratio N) values and uint16 indices; lowrank rank 8: U
+# 6,032 + V 1,840 + dense 686 floats)
+CODEC_BYTES = {("identity", None): 248024, ("topk", 0.1): 37206,
+               ("topk", 0.16): 59526, ("lowrank", 8): 34232}
+CODEC_ROUNDS = 3
+
+
+def codec_kw(kw):
+    """A codec run's FLConfig.make keywords: FL_KW at beta = 0, or a
+    method's defaults over FL_BASE."""
+    method = kw.get("method", "fedncv")
+    base = dict(FL_KW, ncv_beta=0.0) if method == "fedncv" else FL_BASE
+    return dict(base, **kw)
+
+
+def codec_phase(torch, np, kernels, card, world):
+    """The topk and lowrank wires on the card: each run's launches, bytes,
+    time and device work a round, a second card run bitwise, a CPU replay
+    round by round from the card's state; the host store against the
+    device store, the ring at K = 1 and 2 against the unrolled loop, and a
+    checkpoint resume, all bitwise.  Returns this phase's launch count of
+    each kernel."""
+    import shutil
+    from repro_torch import checkpoint
+    from repro_torch.fed import FLConfig, Simulator
+    from repro_torch.utils.tree_math import tree_leaves, tree_map
+
+    class Recording(Simulator):
+        """Keeps each round's draws, and (by reference) its starting params
+        and state and its client section's output."""
+
+        def draw_round(self):
+            d = super().draw_round()
+            self.draws.append(d)
+            return d
+
+        def _client_section_local(self, params, state, draws, batch=None):
+            pending = super()._client_section_local(params, state, draws,
+                                                    batch)
+            self.record.append((params, state, pending))
+            return pending
+
+    def recording(fl, seed=0):
+        sim = Recording(task, params0, train, fl, seed=seed)
+        sim.draws, sim.record = [], []
+        return sim
+
+    train, test, task = world["train"], world["test"], world["task"]
+    params0 = world["params0"]
+    to_cpu = lambda tree: tree_map(lambda x: x.cpu(), tree)  # noqa: E731
+    counts = {n: 0 for n in kernels}
+
+    def counted(fn):
+        return count_launches(torch, kernels, counts, fn)
+
+    for label, kw, per_round in CODEC_RUNS:
+        fl = FLConfig.make(**codec_kw(kw))
+        warm = Simulator(task, params0, train, fl, seed=1)
+        warm.run_rounds(1)
+        sim = recording(fl)
+        draws = [sim.draw_round() for _ in range(CODEC_ROUNDS)]
+        diags, sec, got = counted(lambda: sim.run_rounds(CODEC_ROUNDS,
+                                                         draws=draws))
+        want = {n: CODEC_ROUNDS * per_round.get(n, 0) for n in kernels}
+        require(got == want, f"{label}: launches {got}, want {want}")
+        dev_ms, dev_ops = device_ms_per_round(torch, warm,
+                                              [warm.draw_round()])
+        codec = sim.codec
+        opt = dict(identity=None, topk=0.1, lowrank=8)[fl.codec]
+        bpc = CODEC_BYTES[(fl.codec, fl.codec_opts.get(
+            "ratio", fl.codec_opts.get("rank", opt)))]
+        require(codec.bytes_per_client() == bpc,
+                f"{label}: {codec.bytes_per_client()} bytes a client, the "
+                f"reference's accounting gives {bpc}")
+        aux = 16 if fl.method == "fedncv" else 0
+        alive = [None if d.plan is None else float(d.plan["alive"].sum())
+                 for d in draws]
+        up = [(10 if a is None else a) * bpc + 10 * aux for a in alive]
+        require(list(diags["bytes_up"]) == up,
+                f"{label}: bytes_up {diags['bytes_up']}, want {up}")
+        finite = all(bool(torch.isfinite(v).all()) for v in
+                     sim.params.values()) and all(
+            bool(torch.isfinite(v).all()) for v in
+            tree_leaves(sim._state.get("ef", {}))) and all(
+            np.isfinite(v).all() for v in diags.values())
+        require(finite, f"{label}: non-finite params, ef or diagnostics")
+        rerun = Simulator(task, params0, train, fl, seed=0)
+        rerun.run_rounds(CODEC_ROUNDS, draws=draws)
+        require(sim_same(sim, rerun), f"{label}: a second card run of the "
+                                      f"same draws differs")
+        pre = sim.evaluate(test)
+        say(f"{label} on {card}: {CODEC_ROUNDS} rounds, bytes_up="
+            f"{[float(b) for b in diags['bytes_up']]} ({bpc} B a client), "
+            f"sec_per_round={sec / CODEC_ROUNDS:.4f}, device ms a round "
+            f"{dev_ms:.3f} in {dev_ops:.0f} device operations "
+            f"(torch.profiler), launches a round "
+            f"{ {n: c / CODEC_ROUNDS for n, c in got.items() if c} }, "
+            f"agg_norm={[float(x) for x in diags['agg_norm']]}, "
+            f"pre={pre:.4f}; a second card run bitwise equal")
+
+        # the CPU, round by round from the card's state: its client section
+        # (decoded uploads, aux, returned state with the new error
+        # feedback) held to the card's up to the near-tie share, then its
+        # server section on the card's pending must land on the card's
+        # params and every state field
+        cpu = Simulator(task, params0, train, fl, seed=0, device="cpu")
+        margin, n_off, n_vals = 0.0, 0, 0
+        for i, (p_card, st_card, pend_card) in enumerate(sim.record):
+            cpu.params, cpu._state = to_cpu(p_card), to_cpu(dict(st_card))
+            pend = cpu._client_section_local(cpu.params, cpu._state,
+                                             draws[i])
+            off, nv = compare_uploads(codec, pend_card["grads"],
+                                      pend["grads"], f"{label} round {i}")
+            n_off, n_vals = n_off + off, n_vals + nv
+            for part in ("aux", "cstates"):
+                off, nv = off_tolerance(torch, pend_card[part], pend[part])
+                n_off, n_vals = n_off + off, n_vals + nv
+                require(off <= MAX_OFF_SHARE * nv,
+                        f"{label} round {i} {part}: {off} of {nv} values off "
+                        f"the tolerance")
+            pend = {k: to_cpu(v) for k, v in pend_card.items()}
+            cpu.params, cpu._state, cdiag = cpu._server_section(
+                cpu.params, cpu._state, pend, i + 1)
+            after = sim.record[i + 1] if i + 1 < len(sim.record) else (
+                sim.params, sim._state)
+            require(set(after[1]) == set(cpu._state) and
+                    ("ef" in cpu._state) == codec.stateful,
+                    f"{label}: state fields {sorted(after[1])} on the card, "
+                    f"{sorted(cpu._state)} on the CPU")
+            margin = max(margin, margin_of(after[0], cpu.params),
+                         margin_of(after[1], cpu._state))
+            np.testing.assert_allclose(diags["agg_norm"][i],
+                                       float(cdiag["agg_norm"]), rtol=1e-3)
+            require(float(cdiag["bytes_up"]) == float(diags["bytes_up"][i]),
+                    f"{label}: bytes_up differs from the CPU replay")
+        require(margin <= 1.0, f"{label}: card vs CPU replay margin "
+                               f"{margin:.4f} > 1")
+        say(f"{label}: card vs CPU replay, round by round from the card's "
+            f"state: params and state {sorted(cpu._state)} margin "
+            f"{margin:.4f} (tol rtol {PARAM_RTOL} atol {PARAM_ATOL}: margin "
+            f"<= 1), client values off the tolerance {n_off} of {n_vals}, "
+            f"agg_norm rtol 1e-3, bytes_up equal")
+
+    # -- the host store against the device store, 6 rounds, round by round
+    for label, kw in (("topk", dict(codec="topk")),
+                      ("lowrank", dict(codec="lowrank", rank=8))):
+        kw = codec_kw(kw)
+        dev = Simulator(task, params0, train, FLConfig.make(**kw), seed=0)
+        host = Simulator(task, params0, train,
+                         FLConfig.make(**kw, store="host"), seed=0)
+        secs = {"device": 0.0, "host": 0.0}
+        for _ in range(RING_ROUNDS):
+            d, dh = dev.draw_round(), host.draw_round()
+            rd, sd, gd = counted(lambda: dev.run_round(draws=d))
+            rh, sh, gh = counted(lambda: host.run_round(draws=dh))
+            secs["device"] += sd
+            secs["host"] += sh
+            require(gd == gh and rd == rh and sim_same(dev, host),
+                    f"host-{label}: a round differs from the device store's")
+        m = host.host_metrics()
+        say(f"host-{label} on {card}: {RING_ROUNDS} rounds, each round's "
+            f"params, state (ef among {host.host_state_bytes()} B of host "
+            f"tables) and diagnostics bitwise the device store's; "
+            f"sec_per_round {secs['host'] / RING_ROUNDS:.4f} (device store "
+            f"{secs['device'] / RING_ROUNDS:.4f}), staged "
+            f"{m['staged_bytes_in'] / RING_ROUNDS:.0f} B in and "
+            f"{m['staged_bytes_out'] / RING_ROUNDS:.0f} B out a round")
+        host.close()
+
+    # -- the ring at K = 1 and 2 under topk against the unrolled loop
+    kw = codec_kw(dict(codec="topk"))
+    for k in (1, 2):
+        fl = FLConfig.make(**kw, staleness=k)
+        sim = recording(fl)
+        diags, sec, got = counted(lambda: sim.run_rounds(RING_ROUNDS))
+        want = {n: 0 for n in kernels}
+        want.update(rloo_combine=2 * RING_ROUNDS,
+                    ncv_weighted_sum=RING_ROUNDS)
+        require(got == want, f"ring-k{k}-topk: launches {got}, want {want}")
+        ref = unrolled_on(Simulator(task, params0, train,
+                                    FLConfig.make(**kw), seed=0),
+                          RING_ROUNDS, k, sim.draws)
+        require(sim_same(sim, ref), f"ring-k{k}-topk: the ring differs from "
+                                    f"the hand-unrolled loop on the card")
+        require(all(np.all(v[:k] == 0.0) for v in diags.values()),
+                f"ring-k{k}-topk: bubble rows {diags}")
+        say(f"ring-k{k}-topk on {card}: {RING_ROUNDS} rounds, sec_per_round="
+            f"{sec / RING_ROUNDS:.4f}, launches {got}; bitwise the "
+            f"hand-unrolled loop, {k} bubble rows all 0")
+
+    # -- a K = 1 checkpoint after round 2 under topk, resumed
+    fl = FLConfig.make(**kw, staleness=1)
+    whole = Simulator(task, params0, train, fl, seed=0)
+    rows = whole.run_rounds(5)
+    first = Simulator(task, params0, train, fl, seed=0)
+    rows1 = first.run_rounds(2)
+    directory = str(ROOT / "build" / "chip_smoke_ckpt" / "topk")
+    shutil.rmtree(directory, ignore_errors=True)
+    checkpoint.save_sim(directory, first)
+    size = Path(directory, "2.ckpt").stat().st_size
+    resumed = Simulator(task, params0, train, fl, seed=0)
+    checkpoint.restore_sim(directory, resumed)
+    rows2 = resumed.run_rounds(3)
+    require(sim_same(whole, resumed) and all(
+        np.array_equal(v, np.concatenate([rows1[x], rows2[x]]))
+        for x, v in rows.items()),
+        "checkpoint (topk, K = 1): the resumed run differs from the "
+        "uninterrupted one")
+    shutil.rmtree(directory)
+    say(f"checkpoint (topk, K = 1, after round 2) on {card}: {size} B; 3 "
+        f"more rounds bitwise the uninterrupted run's (params, state with "
+        f"ef, rows)")
+    return counts
 
 
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
@@ -2218,6 +2472,10 @@ def main() -> int:
     say(f"ring, host store and checkpoint runs: launches {ring_counts}")
     phase_s["ring + host store + checkpoints"] = \
         time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    codec_counts = codec_phase(torch, np, kernels, card, world)
+    say(f"topk and lowrank runs: launches {codec_counts}")
+    phase_s["topk + lowrank"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     del world
     torch.cuda.empty_cache()

@@ -8,9 +8,9 @@ The twin of `examples/quickstart.py` on `repro_torch`: it trains LeNet-5
 federatedly for 15 rounds (12 clients, cohort 6, K = 4 microbatches of 16,
 cifar10 stand-in at scale 0.15) and prints the pre- and
 post-personalization accuracy and the uploaded KiB a round of each run:
-fedavg and fedncv over the identity wire, and fedncv over the int8 wire.
-The reference's fourth run, fedncv over the `topk` wire, is not run here:
-`topk` is not ported to `repro_torch` yet.  `--sampler`, `--fault`,
+fedavg and fedncv over the identity wire, and fedncv over the int8 wire
+and over the `topk` wire (ratio 0.16, with per-client error feedback).
+`--sampler`, `--fault`,
 `--tracker` and `--store` take the names the port has registered, except
 `external`, whose tables a host program writes each round; a fault
 model runs with its default options.  It runs on the CUDA
@@ -30,7 +30,8 @@ from repro_torch.fed import (FLConfig, Simulator, Task, registered_faults,
 from repro_torch.models import lenet
 
 ROUNDS = 15
-RUNS = (("fedavg", "identity"), ("fedncv", "identity"), ("fedncv", "int8"))
+RUNS = (("fedavg", "identity"), ("fedncv", "identity"), ("fedncv", "int8"),
+        ("fedncv", "topk"))
 
 
 def make_world():
@@ -51,11 +52,12 @@ def make_config(method, codec, sampler="uniform", tracker="none",
                 store="device", fault="none"):
     ncv_kw = dict(ncv_alpha0=0.3, ncv_alpha_lr=1e-5, ncv_beta=0.0) \
         if method == "fedncv" else {}
+    opts = dict(ratio=0.16) if codec == "topk" else {}
     return FLConfig.make(method=method, n_clients=12, cohort=6, k_micro=4,
                          micro_batch=16, server_lr=0.5, codec=codec,
-                         sampler=sampler, local_lr=0.05, local_epochs=2,
-                         tracker=tracker, store=store, fault=fault,
-                         **ncv_kw)
+                         codec_opts=opts, sampler=sampler, local_lr=0.05,
+                         local_epochs=2, tracker=tracker, store=store,
+                         fault=fault, **ncv_kw)
 
 
 def run(fl, task, params, train, rounds=ROUNDS, device=None, draws=None):

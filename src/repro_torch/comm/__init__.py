@@ -1,19 +1,24 @@
 """repro_torch.comm — compressed client->server wire formats.
 
-Codecs over the flat gradient substrate (`codecs.py`), plus the server-side
-entry points that take a stacked wire (every leaf with a leading cohort
-axis, as the cohort's `encode` produces it):
+Codecs over the flat gradient substrate (`codecs.py`): identity, bf16,
+int8, int4, and the stateful topk and lowrank with per-client error
+feedback; plus the server-side entry points that take a stacked wire
+(every leaf with a leading cohort axis, as the cohort's `encode` produces
+it):
 
     aggregate_wire : wire -> (Eq. 10-12 aggregate, ||agg||^2), through the
                      codec's fused dequantize-aggregate kernel where it has
-                     one (int8 and int4 never materialize f32 uploads).
+                     one (int8 and int4 never materialize f32 uploads;
+                     lowrank sums its factors), else the dense
+                     `ncv_weighted_sum` of the decoded stack (topk).
     decode_stack   : wire -> dense stacked gradient tree.
 """
 from __future__ import annotations
 
 from repro_torch.comm.codecs import (  # noqa: F401
-    CODECS, NOT_PORTED, BF16Codec, Codec, Int4Codec, Int8Codec,
-    check_codec_name, compression_ratio, get_codec, validate_codec_opts,
+    CODECS, NOT_PORTED, BF16Codec, Codec, Int4Codec, Int8Codec, LowRankCodec,
+    TopKCodec, check_codec_name, compression_ratio, get_codec,
+    validate_codec_opts,
 )
 from repro_torch.kernels.rloo.rloo import ncv_coefficients
 from repro_torch.utils.tree_math import FlatSpec, unravel

@@ -179,11 +179,26 @@ def _check_name(kind: str, name: str):
 # spec-driven generic state plumbing
 # ---------------------------------------------------------------------------
 
+def codec_fields(codec) -> tuple[StateField, ...]:
+    """A stateful codec's per-client state (topk's and lowrank's error
+    feedback) as the per-client field "ef", which clients read and write
+    under the same key; () for a stateless codec."""
+    if codec is None or not codec.stateful:
+        return ()
+
+    def init(params, task, mc):
+        device = tree_leaves(params)[0].device
+        return tree_map(lambda x: x.to(device), codec.init_state())
+    return (StateField("ef", per_client=True, init=init, cstate_key="ef",
+                       scatter=True),)
+
+
 def init_state(fields: tuple[StateField, ...], params, task, mc,
-               n_clients: int) -> dict:
-    """Per-client fields stacked to (n_clients, ...), global fields as-is."""
+               n_clients: int, codec=None) -> dict:
+    """Per-client fields stacked to (n_clients, ...), global fields as-is,
+    plus a stateful codec's error feedback under "ef"."""
     state = {}
-    for f in fields:
+    for f in fields + codec_fields(codec):
         one = f.init(params, task, mc)
         if f.per_client:
             state[f.name] = tree_map(
@@ -274,12 +289,20 @@ def with_codec(client_fn, codec):
     replaces it with the codec's stacked wire dict.  Its `key` argument
     carries the encoder's randomness: the stochastic-rounding uniforms
     (C, n_chunks, chunk) for int8 / int4, None for the others; the inner
-    client fn gets None (the ported clients draw nothing)."""
+    client fn gets None (the ported clients draw nothing).  A stateful
+    codec (topk's and lowrank's error feedback) reads the cohort's state
+    under the ``"ef"`` key of `cstate` and writes the new state back
+    there, so it rides the gather and scatter of every per-client
+    state."""
     def fn(ctx, params, cstate, batches, key):
         out = client_fn(ctx, params, cstate, batches, None)
         vec, _ = ravel_stack(out.grad)
-        wire, _ = codec.encode(vec, None, key)
-        return out._replace(grad=wire)
+        state = cstate.get("ef") if codec.stateful else None
+        wire, new_state = codec.encode(vec, state, key)
+        new_cstate = out.cstate
+        if codec.stateful:
+            new_cstate = dict(new_cstate, ef=new_state)
+        return out._replace(grad=wire, cstate=new_cstate)
     return fn
 
 

@@ -22,10 +22,13 @@ Each round:
   `_server_section`       the fault state and the sampler state update,
                           the method's cohort-state update (pFedSim's head
                           mixing every tenth round), the write-back of the
-                          per-client state (not of dropped clients), the
+                          per-client state and of a stateful codec's error
+                          feedback (`sim.ef`; not of dropped clients), the
                           aggregator (`fl.aggregator`) over the weights:
-                          Eq. 10-12 via `ncv_weighted_sum`, or straight off
-                          the int8 / int4 wire via `ncv_weighted_sum_q[4]`,
+                          Eq. 10-12 via `ncv_weighted_sum` (on the decoded
+                          topk wire too), or straight off the int8 / int4
+                          wire via `ncv_weighted_sum_q[4]`, or off lowrank's
+                          factors (no kernel),
                           or the robust reductions (skipped for a method
                           that reduces the dense uploads itself, FedNCV+),
                           zeroed when every client dropped; then the
@@ -151,9 +154,10 @@ class Simulator:
         self._sizes_host = _tensor(data["client_sizes"], torch.int64)
         self._gen = torch.Generator().manual_seed(int(seed))
         self._grad_spec = flat_spec(self.params, lead=0)
-        # client->server wire format (uploads share the params' structure)
+        # client->server wire format (uploads share the params' structure;
+        # lowrank factors the matrix-shaped leaves of `spec`)
         self.codec = comm.get_codec(fl.codec, n=self._grad_spec.n,
-                                    **fl.codec_opts)
+                                    spec=self._grad_spec, **fl.codec_opts)
         self._ugen = torch.Generator(device=dev).manual_seed(int(seed))
         # partial averaging: the fields' combined federated_slice mask
         # (personal heads), or None; uploads are masked before the codec
@@ -183,12 +187,15 @@ class Simulator:
         self._client_update = self._client_fn()
         self.agg = aggregators.get_aggregator(fl.aggregator)
         self._agg_opts = aggregators.resolve_opts(self.agg, fl.agg_opts)
+        # the per-client state the cohort gathers and writes back: the
+        # method's fields and a stateful codec's error feedback ("ef")
+        self._cohort_fields = self._fields + api.codec_fields(self.codec)
         self._host_state_names: list = []
         if self._host_mode:
             # per-client tables built host-side from one init row each;
             # the global fields stay in the device state dict
             self._state = {}
-            for f in self._fields:
+            for f in self._cohort_fields:
                 one = f.init(self.params, task, fl.mc)
                 if f.per_client:
                     self._host.add(f.name, one, fl.n_clients)
@@ -197,7 +204,8 @@ class Simulator:
                     self._state[f.name] = one
         else:
             self._state = api.init_state(self._fields, self.params, task,
-                                         fl.mc, fl.n_clients)
+                                         fl.mc, fl.n_clients,
+                                         codec=self.codec)
         for key, owner, opts in (("sampler", self.smp, self._smp_opts),
                                  ("faults", self.fm, self._fm_opts)):
             if not owner.stateful:
@@ -347,7 +355,7 @@ class Simulator:
         return {k: self.data[k][sel] for k in ("images", "labels")}
 
     def _cohort_cstates(self, state, idx):
-        return api.gather_cohort_states(self._fields, state, idx)
+        return api.gather_cohort_states(self._cohort_fields, state, idx)
 
     def _f32(self, x):
         if x is None:
@@ -443,9 +451,10 @@ class Simulator:
         cstates = pending["cstates"]
         if method.cohort_state_update is not None:
             cstates = method.cohort_state_update(ctx, cstates)
-        # dropped clients keep their previous rows: they never reported
-        new_state = api.scatter_cohort_states(self._fields, new_state, idx,
-                                              cstates, alive=alive)
+        # dropped clients keep their previous rows, error feedback
+        # included: they never reported
+        new_state = api.scatter_cohort_states(self._cohort_fields, new_state,
+                                              idx, cstates, alive=alive)
         agg = None
         if not method.needs_dense_grads:
             agg = aggregators.aggregate_stack(self.agg, self._agg_opts,

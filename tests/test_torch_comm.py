@@ -206,18 +206,26 @@ def test_decode_stack_unravels_to_the_upload_tree():
 
 
 @pytest.mark.parametrize("name,opts,err,match", [
-    ("topk", {}, KeyError, "not ported"),
-    ("lowrank", {}, KeyError, "not ported"),
+    # the first two ids are kept from before topk and lowrank were ported,
+    # when they asserted KeyError "not ported"; they now assert what the
+    # reference asserts for these names: the codec builds in both packages
+    # and an out-of-range value raises ValueError in both
+    pytest.param("topk", dict(ratio=0.0), ValueError, "ratio",
+                 id="topk-opts0-KeyError-not ported"),
+    pytest.param("lowrank", dict(rank=0), ValueError, "rank",
+                 id="lowrank-opts1-KeyError-not ported"),
     ("nope", {}, KeyError, "unknown codec"),
     ("int8", dict(ratio=0.1), TypeError, "not used by codec"),
     ("bf16", dict(chunk=64), TypeError, "not used by codec"),
 ])
 def test_registry_and_option_errors(name, opts, err, match):
-    if err is KeyError and name in jcomm.CODECS:
-        jcomm.validate_codec_opts(name, opts)     # the reference has it
-    else:
-        with pytest.raises(err):
-            jcomm.validate_codec_opts(name, opts)
+    if err is ValueError:
+        # a registered name with a bad value: both packages build it with
+        # its defaults, and both refuse the value
+        jcomm.get_codec(name, n=100)
+        assert comm.get_codec(name, n=100).name == name
+    with pytest.raises(err):
+        jcomm.validate_codec_opts(name, opts)
     with pytest.raises(err, match=match):
         comm.get_codec(name, n=100, **opts)
     with pytest.raises(err):

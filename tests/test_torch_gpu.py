@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import configs
+from repro_torch import comm, configs
 from repro_torch.data import federated_splits
 from repro_torch.fed import FLConfig, Simulator, Task
 from repro_torch.kernels import reduction
@@ -31,7 +31,7 @@ from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.launch.train import make_prefill_step
 from repro_torch.models import api as lm_api
 from repro_torch.models import lenet
-from repro_torch.utils.tree_math import tree_map
+from repro_torch.utils.tree_math import flat_spec, tree_leaves, tree_map
 
 pytestmark = pytest.mark.gpu
 
@@ -372,6 +372,85 @@ def test_wire_and_robust_rounds_launch_their_kernels(cuda, kw, kernel):
     assert fns[kernel].launches - before == 2
     assert np.isfinite(diags["agg_norm"]).all()
     assert all(bool(torch.isfinite(v).all()) for v in sim.params.values())
+
+
+def _topk_rows(seed, m, n, ties):
+    """Rows with (ties) magnitudes from a small set and random signs, or
+    (not ties) normals."""
+    rng = np.random.default_rng(seed)
+    if not ties:
+        return torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
+    vals = rng.choice(np.float32([0.0, 0.5, 1.0, 2.0]), size=(m, n))
+    return torch.from_numpy((vals * rng.choice(np.float32([-1.0, 1.0]),
+                                               size=(m, n))).astype(np.float32))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("n,ratio", [(62006, 0.1), (62006, 0.16),
+                                     (70000, 0.01), (513, 0.25)])
+def test_topk_encode_on_the_card_is_the_cpu_bitwise(cuda, n, ratio, ties):
+    """The stable descending sort keeps the lower index first among equal
+    magnitudes on the card too: wire, index dtype, residual and decode
+    bitwise the CPU's, ties and +-x pairs included."""
+    codec = comm.get_codec("topk", n=n, ratio=ratio)
+    x, state = _topk_rows(n, 10, n, ties), 0.5 * _topk_rows(n + 1, 10, n,
+                                                             ties)
+    w_cpu, r_cpu = codec.encode(x, state)
+    w_gpu, r_gpu = codec.encode(x.to(cuda), state.to(cuda))
+    for k in ("v", "i"):
+        assert w_gpu[k].dtype == w_cpu[k].dtype
+        assert torch.equal(w_gpu[k].cpu(), w_cpu[k]), k
+    assert torch.equal(r_gpu.cpu(), r_cpu)
+    assert torch.equal(codec.decode(w_gpu).cpu(), codec.decode(w_cpu))
+
+
+def test_lowrank_encode_on_the_card_matches_cpu(cuda):
+    """LeNet-5's upload at rank 8, two rounds from the starting bases:
+    wire, state and decode within rtol 1e-4, atol 1e-5 of the CPU's."""
+    params = lenet.init(lenet.LeNetConfig(), torch.Generator().manual_seed(0))
+    spec = flat_spec(params, lead=0)
+    codec = comm.get_codec("lowrank", n=spec.n, spec=spec, rank=8)
+    x = 0.01 * _randn(3, 10, spec.n)
+    one = codec.init_state()
+    state = tree_map(lambda t: t.expand((10,) + tuple(t.shape)).clone(), one)
+    cpu, gpu = state, tree_map(lambda t: t.to(cuda), state)
+    for _ in range(2):
+        w_cpu, cpu = codec.encode(x, cpu)
+        w_gpu, gpu = codec.encode(x.to(cuda), gpu)
+        for k in ("u", "v", "d"):
+            torch.testing.assert_close(w_gpu[k].cpu(), w_cpu[k], rtol=1e-4,
+                                       atol=1e-5)
+        for k in ("r", "v"):
+            torch.testing.assert_close(gpu[k].cpu(), cpu[k], rtol=1e-4,
+                                       atol=1e-5)
+        torch.testing.assert_close(codec.decode(w_gpu).cpu(),
+                                   codec.decode(w_cpu), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("codec,opts,wsum", [("topk", dict(ratio=0.1), 1),
+                                             ("lowrank", dict(rank=8), 0)])
+def test_codec_rounds_launch_their_kernels(cuda, codec, opts, wsum):
+    """A fedncv round over topk decodes into one `ncv_weighted_sum`;
+    lowrank sums its factors and launches none; both run the client's two
+    `rloo_combine`; the error feedback is on the card and finite."""
+    spec, train, test = federated_splits("cifar10", n_clients=6, alpha=0.1,
+                                         seed=0, scale=0.02)
+    cfg = lenet.LeNetConfig()
+    task = Task(loss=lambda p, b: lenet.loss_fn(cfg, p, b),
+                accuracy=lambda p, b: lenet.accuracy(cfg, p, b))
+    fl = FLConfig.make(method="fedncv", n_clients=6, cohort=3, k_micro=3,
+                       micro_batch=4, server_lr=0.5, local_lr=0.05,
+                       local_epochs=2, ncv_alpha0=0.3, ncv_beta=0.0,
+                       codec=codec, **opts)
+    params = lenet.init(cfg, torch.Generator().manual_seed(0))
+    sim = Simulator(task, params, train, fl, seed=0)
+    r0, w0 = K.rloo_combine.launches, K.ncv_weighted_sum.launches
+    diags = sim.run_rounds(2)
+    assert K.rloo_combine.launches - r0 == 4
+    assert K.ncv_weighted_sum.launches - w0 == 2 * wsum
+    assert np.isfinite(diags["agg_norm"]).all()
+    for t in tree_leaves(sim.ef):
+        assert t.is_cuda and bool(torch.isfinite(t).all())
 
 
 @pytest.mark.parametrize("method", ["fedprox", "scaffold", "fedncv+",

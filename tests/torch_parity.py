@@ -31,7 +31,11 @@ FEDNCV = dict(local_epochs=2, ncv_alpha0=0.3, ncv_alpha_lr=1e-2,
               ncv_beta=0.0)
 
 
-def make_world():
+def make_world(port_init=False):
+    """The two packages' data, tasks and LeNet-5 params at the small size.
+    `port_init`: draw the params with the port's init (the reference's
+    eager init compiles for seconds a shape); both packages start from the
+    same values either way."""
     _, train, test = j_splits("cifar10", n_clients=6, alpha=0.1, seed=SEED,
                               scale=0.02)
     _, ttrain, _ = t_splits("cifar10", n_clients=6, alpha=0.1, seed=SEED,
@@ -43,9 +47,14 @@ def make_world():
     ttask = Task(loss=lambda p, b: tlenet.loss_fn(tcfg, p, b),
                  accuracy=lambda p, b: tlenet.accuracy(tcfg, p, b),
                  head_keys=tlenet.HEAD_KEYS)
-    jp = jlenet.init(jcfg, jax.random.PRNGKey(SEED))
+    if port_init:
+        tp = tlenet.init(tcfg, torch.Generator().manual_seed(SEED))
+        jp = {k: jax.numpy.asarray(v.numpy()) for k, v in tp.items()}
+    else:
+        jp = jlenet.init(jcfg, jax.random.PRNGKey(SEED))
+        tp = params_from_jax(jax.tree.map(np.asarray, jp))
     return dict(train=train, ttrain=ttrain, jtask=jtask, ttask=ttask, jp=jp,
-                tp=params_from_jax(jax.tree.map(np.asarray, jp)))
+                tp=tp)
 
 
 def sims(world, method="fedncv", **kw):
