@@ -89,7 +89,19 @@ without the final `ok` line:
                store against the device store under topk and lowrank (6
                rounds, bitwise), the ring at K = 1 and 2 under topk against
                the unrolled loop (bitwise), and a K = 1 checkpoint after
-               round 2 under topk resumed bitwise.
+               round 2 under topk resumed bitwise; then
+               `serve_track_phase`: the served FedNCV round (beta = 1,
+               track_variance) under a `Coordinator` (markov queue,
+               check-in 0.5, deadline 2.0 s) into a stdout + jsonl sink,
+               K = 0 under the fixed policy and K = 1 under token_bucket
+               (ending in `drain()`), 6 rounds each: one row a round
+               (`tools/flwatch.py --check`), gvar_proxy against plain
+               torch, bitwise an untracked run on the same tables, a
+               save at round 3 resumed bitwise (the jsonl cut back,
+               bytes_up_cum continuous), 2 `rloo_combine` + 1
+               `ncv_weighted_sum` a round; then 10 interleaved tracked
+               and untracked rounds timed, the row's emission split into
+               its wait for the device and its host work.
                Checks the launch
                counts, `bytes_up`, finiteness, and the parameters against
                a CPU replay of the same draws through the plain versions
@@ -922,18 +934,30 @@ def margin_of(card, cpu):
             tree_leaves(card), tree_leaves(cpu)) if y.numel()), default=0.0)
 
 
-def device_ms_per_round(torch, sim, draws):
-    """Device ms and device operations a round, from torch.profiler over
-    `len(draws)` rounds of `sim` (sum of the device kernels' times)."""
+def device_ms_per_call(torch, fn, n):
+    """Device ms and device operations a call, from torch.profiler over n
+    calls of fn (sum of the device kernels' times; the round's phase
+    scopes, which a trace may also place on the device's timeline, are
+    labels, not operations)."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.track import PHASES
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        sim.run_rounds(len(draws), draws=draws)
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (sum(e.device_time for e in dev) / 1e3 / len(draws),
-            len(dev) / len(draws))
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.name not in PHASES]
+    return sum(e.device_time for e in dev) / 1e3 / n, len(dev) / n
+
+
+def device_ms_per_round(torch, sim, draws):
+    """Device ms and device operations a round over `len(draws)` rounds of
+    `sim`."""
+    ms, ops = device_ms_per_call(
+        torch, lambda: sim.run_rounds(len(draws), draws=draws), 1)
+    return ms / len(draws), ops / len(draws)
 
 
 def methods_slice_phase(torch, np, kernels, card, world):
@@ -1935,6 +1959,224 @@ def codec_phase(torch, np, kernels, card, world):
     return counts
 
 
+# the served round with streaming telemetry (phase 4, after the codecs):
+# rounds of each run, the round a checkpoint is taken at, and the gvar_proxy
+# check's tolerance against plain torch in f64 (each of its two terms is an
+# f32 sum, so their difference also carries ~1e-6 of E_w ||g_u||^2)
+SERVE_ROUNDS = 6
+SERVE_SAVE_AT = 3
+SERVE_TIMED = 10               # interleaved tracked / untracked rounds
+GVAR_RTOL, GVAR_E2_ATOL = 1e-3, 1e-6
+
+
+def gvar_plain(torch, pending, beta):
+    """The cohort variance proxy max(E_w ||g_u||^2 - ||sum_u c_u g_u||^2,
+    0) in plain torch (f64, on the CPU) from a round's uploads and weights
+    (c: the Eq. 10-12 coefficients of the weights); and E_w ||g_u||^2."""
+    from repro_torch.kernels.rloo.rloo import ncv_coefficients
+    from repro_torch.utils.tree_math import ravel_stack
+    g = ravel_stack(pending["grads"])[0].double().cpu()
+    w = pending["weights"].cpu()
+    p_w = w.double() / max(float(w.double().sum()), 1e-30)
+    e2 = float((p_w * (g * g).sum(1)).sum())
+    c = ncv_coefficients(w, beta).double()
+    agg = (c[:, None] * g).sum(0)
+    nsq = float((agg * agg).sum()) * float(pending.get("live", 1.0))
+    return max(e2 - nsq, 0.0), e2
+
+
+def serve_track_phase(torch, np, kernels, card, world):
+    """The served FedNCV round (beta = 1, `track_variance`) under a
+    `Coordinator` on the card, at the slice's FL world: a markov queue
+    (check-in 0.5), deadline 2.0 s, a stdout + jsonl composite sink; K = 0
+    under the fixed policy and K = 1 under token_bucket, 6 rounds each (K =
+    1: 5 admission rounds and the drain).  Holds one row per round and
+    `tools/flwatch.py --check`, gvar_proxy against plain torch, the tracked
+    run bitwise an untracked one on the same tables, a save at round 3
+    resumed bitwise (the jsonl truncated, bytes_up_cum continuous), and 2
+    `rloo_combine` + 1 `ncv_weighted_sum` a round.  Returns this phase's
+    launch count of each kernel."""
+    import shutil
+    from repro_torch import track
+    from repro_torch.fed import Simulator
+    from repro_torch.serve import ClientQueue, Coordinator, make_serve_config
+
+    class Recording(Simulator):
+        """Keeps the pending each round's server section applied."""
+
+        def _server_section(self, params, state, pending, r):
+            self.applied[r] = pending
+            return super()._server_section(params, state, pending, r)
+
+    train, task, params0 = world["train"], world["task"], world["params0"]
+    kw = dict(FL_KW, ncv_beta=1.0)
+    counts = {n: 0 for n in kernels}
+    out_dir = ROOT / "build" / "chip_smoke_serve"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+
+    def coordinator(k, policy, path=None):
+        """A coordinator over a fresh simulator: tracked (a stdout + jsonl
+        composite at `path`, track_variance) or, without a path,
+        untracked."""
+        fl = make_serve_config(**kw, staleness=k,
+                               track_variance=path is not None)
+        sink = None if path is None else track.composite(
+            track.make_tracker("stdout"),
+            track.make_tracker("jsonl", path=str(path)))
+        sim = Recording(task, params0, train, fl, seed=0, tracker=sink)
+        sim.applied = {}
+        queue = ClientQueue(FL_BASE["n_clients"], avail="markov",
+                            checkin_rate=0.5, seed=0)
+        return Coordinator(sim, queue, policy=policy, deadline_s=2.0)
+
+    def serve_rounds(c, k, first, last):
+        """Rounds first..last of `c`, those past SERVE_ROUNDS - k through
+        drain(); each counted.  Returns (step seconds, run_round seconds,
+        launches) a round."""
+        step_s, run_s, got = [], [], []
+        for r in range(first, last + 1):
+            fn = c.drain if r > SERVE_ROUNDS - k else c.step
+            _, sec, g = count_launches(torch, kernels, counts, fn)
+            step_s.append(sec)
+            run_s.append(c._last_round_s)
+            got.append(g)
+        return step_s, run_s, got
+
+    def rows_of(path):
+        return [json.loads(x) for x in open(path)]
+
+    def flwatch(path):
+        gate = subprocess.run(
+            [sys.executable, str(ROOT / "tools" / "flwatch.py"), str(path),
+             "--check", "--expect-rounds", str(SERVE_ROUNDS)],
+            capture_output=True, text=True, timeout=60)
+        require(gate.returncode == 0, f"flwatch --check on {path}: "
+                                      f"{gate.stdout} {gate.stderr}")
+        return gate.stdout.strip()
+
+    per_round = dict(rloo_combine=2, ncv_weighted_sum=1)
+    for k, policy in ((0, "fixed"), (1, "token_bucket")):
+        label = f"serve-k{k}-{policy}"
+        path = out_dir / f"{label}.jsonl"
+        a, b = coordinator(k, policy, path), coordinator(k, policy)
+        step_s, run_s, got = serve_rounds(a, k, 1, SERVE_ROUNDS)
+        serve_rounds(b, k, 1, SERVE_ROUNDS)
+        want = {n: per_round.get(n, 0) for n in kernels}
+        require(all(g == want for g in got),
+                f"{label}: launches a round {got}, want {want}")
+        require(sim_same(a.sim, b.sim), f"{label}: the tracked run's params "
+                                        f"or state differ from the "
+                                        f"untracked run's")
+        a.sim.tracker.finish(dict(rounds=a.sim.round_idx))
+        rows = [r for r in rows_of(path) if "round" in r]
+        require([r["round"] for r in rows] ==
+                list(range(1, SERVE_ROUNDS + 1)),
+                f"{label}: rows {[r['round'] for r in rows]}")
+        gate = flwatch(path)
+        margin, gvars = 0.0, []
+        for row in rows:
+            r = row["round"]
+            gvars.append(row["gvar_proxy"])
+            require(row["gvar_proxy"] >= 0.0, f"{label}: round {r} "
+                                              f"gvar_proxy < 0")
+            if r <= k:
+                require(all(v == 0.0 for x, v in row.items()
+                            if x in ("agg_norm", "bytes_up", "gvar_proxy",
+                                     "live")),
+                        f"{label}: bubble row {row}")
+                continue
+            want_g, e2 = gvar_plain(torch, a.sim.applied[r], 1.0)
+            tol = GVAR_E2_ATOL * e2 + GVAR_RTOL * abs(want_g)
+            margin = max(margin, abs(row["gvar_proxy"] - want_g) / tol)
+        require(margin <= 1.0, f"{label}: gvar_proxy {gvars} off plain "
+                               f"torch, margin {margin:.4f}")
+        size = path.stat().st_size
+        # timing: a tracked and an untracked coordinator on the same
+        # tables, their rounds interleaved (which goes first alternates),
+        # after a warm round each; the tracked rows' emission split into
+        # the wait for the device and the host's own work
+        ptr = coordinator(k, policy, out_dir / f"{label}-timed.jsonl")
+        pun = coordinator(k, policy)
+        wait_s, emit_s = [], []
+        emit = ptr.sim._emit
+
+        def timed_emit(r, diag):
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = emit(r, diag)
+            wait_s.append(t1 - t0)
+            emit_s.append(time.perf_counter() - t1)
+            return out
+        for name in ("reset", "resume", "set_host_metrics"):
+            setattr(timed_emit, name, getattr(emit, name))
+        ptr.sim._emit = timed_emit
+        for c in (ptr, pun):
+            c.step()
+        wait_s.clear()
+        emit_s.clear()
+        tr_s, un_s = [], []
+        for i in range(SERVE_TIMED):
+            pair = ((ptr, tr_s), (pun, un_s))
+            for c, out in (pair if i % 2 else pair[::-1]):
+                c.step()
+                out.append(c._last_round_s)
+        ms_tr, ops_tr = device_ms_per_call(torch, ptr.step, 2)
+        ms_un, ops_un = device_ms_per_call(torch, pun.step, 2)
+        say(f"{label} on {card}: {SERVE_ROUNDS} rounds, one row each "
+            f"({gate}); Coordinator.step {spread(step_s)} s against its "
+            f"run_round {spread(run_s)}; {SERVE_TIMED} interleaved rounds: "
+            f"run_round tracked {spread(tr_s)}, untracked on the same "
+            f"tables {spread(un_s)}, the tracked row's wait for the device "
+            f"{spread(wait_s)} and host work {spread(emit_s)}; device ms a "
+            f"round tracked {ms_tr:.3f} in {ops_tr:.0f} operations, "
+            f"untracked {ms_un:.3f} in {ops_un:.0f} (torch.profiler); "
+            f"jsonl {size / SERVE_ROUNDS:.0f} B a round; launches a round "
+            f"{want}; admitted {[r['admitted'] for r in rows]}, "
+            f"gvar_proxy {gvars} (plain torch margin {margin:.4f}: rtol "
+            f"{GVAR_RTOL}, atol {GVAR_E2_ATOL} E_w||g||^2); params and "
+            f"state bitwise the untracked run's")
+        if not k:
+            continue
+        # a checkpoint at round 3 of the tracked K = 1 run, resumed into a
+        # fresh coordinator on the same jsonl
+        directory = out_dir / f"{label}-ckpt"
+        a2 = coordinator(k, policy, out_dir / f"{label}-resumed.jsonl")
+        serve_rounds(a2, k, 1, SERVE_SAVE_AT)
+        a2.save(str(directory))
+        serve_rounds(a2, k, SERVE_SAVE_AT + 1, SERVE_ROUNDS)
+        a2.sim.tracker.finish(dict(rounds=a2.sim.round_idx))
+        whole = [r for r in rows_of(a2.sim.tracker.children[1].path)
+                 if "round" in r]
+        c = coordinator(k, policy, out_dir / f"{label}-resumed.jsonl")
+        c.restore(str(directory))
+        kept = rows_of(out_dir / f"{label}-resumed.jsonl")
+        require([r["round"] for r in kept] ==
+                list(range(1, SERVE_SAVE_AT + 1)),
+                f"{label}: after restore the jsonl holds {kept}")
+        serve_rounds(c, k, SERVE_SAVE_AT + 1, SERVE_ROUNDS)
+        c.sim.tracker.finish(dict(rounds=c.sim.round_idx))
+        again = [r for r in rows_of(out_dir / f"{label}-resumed.jsonl")
+                 if "round" in r]
+        strip = lambda rs: [{x: v for x, v in r.items()  # noqa: E731
+                             if x != "sec_per_round"} for r in rs]
+        cum = list(np.cumsum([r["bytes_up"] for r in again]))
+        require(sim_same(a2.sim, c.sim) and sim_same(a2.sim, a.sim)
+                and strip(again) == strip(whole)
+                and [r["bytes_up_cum"] for r in again] == cum,
+                f"{label}: the run resumed at round {SERVE_SAVE_AT} differs "
+                f"from the uninterrupted one")
+        flwatch(out_dir / f"{label}-resumed.jsonl")
+        say(f"{label}: saved at round {SERVE_SAVE_AT}, restored into a "
+            f"fresh coordinator: the jsonl truncated to rounds 1-"
+            f"{SERVE_SAVE_AT}, rounds {SERVE_SAVE_AT + 1}-{SERVE_ROUNDS} "
+            f"(the last by drain) bitwise the uninterrupted run's params, "
+            f"state and rows, bytes_up_cum continuous")
+    shutil.rmtree(out_dir)
+    return counts
+
+
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 # flash kernel vs its plain version, (rtol, atol): f32, the reference
 # kernel tests' 2e-4; bf16, both compute in f32 and round to bf16 once, so
@@ -2476,6 +2718,10 @@ def main() -> int:
     codec_counts = codec_phase(torch, np, kernels, card, world)
     say(f"topk and lowrank runs: launches {codec_counts}")
     phase_s["topk + lowrank"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    serve_counts = serve_track_phase(torch, np, kernels, card, world)
+    say(f"served and tracked runs: launches {serve_counts}")
+    phase_s["serve + telemetry"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     del world
     torch.cuda.empty_cache()

@@ -191,7 +191,8 @@ def restore_sim(directory: str, sim, step: int | None = None):
     checkpoint with generator states (`rng/...`) restores them, so the
     resumed run draws what the uninterrupted one would have; one without
     them, such as one the reference wrote, leaves the simulator's
-    generators as they are."""
+    generators as they are.  The simulator's tracker is re-armed at the
+    restored round (`Simulator._track_resume`)."""
     from repro_torch.fed import aggregators, api, faults, sampling
 
     path = _step_path(directory, step)
@@ -250,4 +251,7 @@ def restore_sim(directory: str, sim, step: int | None = None):
     sim.set_pipeline_state(tree.get("pipeline"))
     for k, s in tree.get("rng", {}).items():
         gens[k].set_state(s)
+    # re-arm the tracker at the restored round: the sinks drop rows the
+    # checkpoint never saw, and bytes_up_cum goes on from the last kept row
+    sim._track_resume(sim.round_idx)
     return meta

@@ -12,11 +12,10 @@ Ported so far: all nine methods the reference registers (`fedavg`,
 `fedncv`, `fedncv+`, `fedprox`, `scaffold`, `fedper`, `fedrep`, `pfedsim`,
 `fedglomo`), all four samplers (`uniform`, `importance`, `similarity`,
 `external`), the aggregators `mean`, `trimmed_mean`, `median` and
-`norm_clip`, the codecs `identity`, `bf16`, `int8` and `int4`, all six
-fault models (`none`, `dropout`, `markov`, `straggler`, `byzantine`,
-`external`), both stores (`device`, `host`; `fed/store.py`) and
-tracker `none`.  A name the reference has but the port does not yet
-raises KeyError saying so; it is never ignored.
+`norm_clip`, every codec (`identity`, `bf16`, `int8`, `int4`, `topk`,
+`lowrank`), all six fault models (`none`, `dropout`, `markov`,
+`straggler`, `byzantine`, `external`), both stores (`device`, `host`;
+`fed/store.py`) and all six trackers (`repro_torch.track`).
 """
 from __future__ import annotations
 
@@ -26,6 +25,7 @@ import typing as tp
 import torch
 
 from repro_torch import comm
+from repro_torch import track
 from repro_torch.core import control_variates as cv
 from repro_torch.fed import aggregators
 from repro_torch.fed import faults
@@ -127,18 +127,6 @@ class FedMethod:
 
 _REGISTRY: dict[str, FedMethod] = {}
 
-# names the reference registers that the port does not have yet
-_NOT_PORTED = {
-    "tracker": ("composite", "csv", "jsonl", "memory", "stdout"),
-}
-# the ported option-less strategies of the other registries
-_PORTED = {"tracker": ("none",)}
-
-
-def not_ported(kind: str, name: str, have) -> KeyError:
-    return KeyError(f"{kind} '{name}' is not ported to repro_torch yet; "
-                    f"ported: {sorted(have)}")
-
 
 def register_method(method: FedMethod, *, overwrite: bool = False) -> FedMethod:
     """Register `method` under `method.name`; returns it for chaining."""
@@ -160,19 +148,11 @@ def registered_methods() -> tuple[str, ...]:
 
 
 def registered_trackers() -> tuple[str, ...]:
-    return _PORTED["tracker"]
+    return track.registered_trackers()
 
 
 def registered_stores() -> tuple[str, ...]:
     return store_lib.registered_stores()
-
-
-def _check_name(kind: str, name: str):
-    if name in _PORTED[kind]:
-        return
-    if name in _NOT_PORTED[kind]:
-        raise not_ported(kind, name, _PORTED[kind])
-    raise KeyError(f"unknown {kind} '{name}'; have {sorted(_PORTED[kind])}")
 
 
 # ---------------------------------------------------------------------------
@@ -296,9 +276,10 @@ def with_codec(client_fn, codec):
     state."""
     def fn(ctx, params, cstate, batches, key):
         out = client_fn(ctx, params, cstate, batches, None)
-        vec, _ = ravel_stack(out.grad)
-        state = cstate.get("ef") if codec.stateful else None
-        wire, new_state = codec.encode(vec, state, key)
+        with track.scope(track.ENCODE):
+            vec, _ = ravel_stack(out.grad)
+            state = cstate.get("ef") if codec.stateful else None
+            wire, new_state = codec.encode(vec, state, key)
         new_cstate = out.cstate
         if codec.stateful:
             new_cstate = dict(new_cstate, ef=new_state)
@@ -349,9 +330,6 @@ class FLConfig:
         if not isinstance(self.staleness, int) or self.staleness < 0:
             raise ValueError(f"staleness must be an int >= 0 (pipeline "
                              f"depth K), got {self.staleness!r}")
-        if self.track_variance:
-            raise NotImplementedError("track_variance is not ported to "
-                                      "repro_torch yet")
         if not 1 <= self.cohort <= self.n_clients:
             raise ValueError(f"cohort={self.cohort} must be in "
                              f"[1, n_clients={self.n_clients}]")
@@ -361,11 +339,8 @@ class FLConfig:
         if method.validate is not None:
             method.validate(self.mc)
         comm.validate_codec_opts(self.codec, self.codec_opts)
-        _check_name("tracker", self.tracker)
-        if self.tracker_opts:
-            raise TypeError(f"tracker option(s) {sorted(self.tracker_opts)} "
-                            f"are not used by tracker '{self.tracker}'; it "
-                            f"has none")
+        track.resolve_opts(track.get_tracker(self.tracker),
+                           self.tracker_opts)
         store_lib.resolve_opts(store_lib.get_store(self.store),
                                self.store_opts)
         sampling.resolve_opts(sampling.get_sampler(self.sampler),
@@ -396,14 +371,13 @@ class FLConfig:
              store: str = "device", store_opts: dict | None = None,
              track_variance: bool = False,
              **opts) -> "FLConfig":
-        """Validated construction: every name must be registered (or raise
-        that it is not ported yet), and every extra keyword must be an
-        option one of the chosen strategies reads — COMMON_OPTIONS plus the
-        method's declared options, or the codec's, sampler's, aggregator's
-        or fault model's."""
+        """Validated construction: every name must be registered, and every
+        extra keyword must be an option one of the chosen strategies reads
+        — COMMON_OPTIONS plus the method's declared options, or the
+        codec's, sampler's, aggregator's, fault model's, tracker's or
+        store's."""
         m = get_method(method)
         comm.check_codec_name(codec)
-        _check_name("tracker", tracker)
         subsystems = (
             ("method", method, COMMON_OPTIONS | set(m.options), None),
             ("codec", codec, set(comm.CODECS[codec].options), "codec_opts"),
@@ -414,6 +388,8 @@ class FLConfig:
              "agg_opts"),
             ("fault", fault, set(faults.get_fault(fault).options),
              "fault_opts"),
+            ("tracker", tracker,
+             set(track.get_tracker(tracker).options), "tracker_opts"),
             ("store", store,
              set(store_lib.get_store(store).options), "store_opts"),
         )
@@ -448,7 +424,9 @@ class FLConfig:
                         "sampler_opts")
         a_opts = routed(subsystems[3][2], agg_opts, "aggregator", "agg_opts")
         f_opts = routed(subsystems[4][2], fault_opts, "fault", "fault_opts")
-        st_opts = routed(subsystems[5][2], store_opts, "store", "store_opts")
+        t_opts = routed(subsystems[5][2], tracker_opts, "tracker",
+                        "tracker_opts")
+        st_opts = routed(subsystems[6][2], store_opts, "store", "store_opts")
         method_opts = {k: v for k, v in opts.items() if k in subsystems[0][2]}
         return cls(method=method, n_clients=n_clients, cohort=cohort,
                    k_micro=k_micro, micro_batch=micro_batch,
@@ -457,7 +435,7 @@ class FLConfig:
                    sampler=sampler, sampler_opts=s_opts,
                    aggregator=aggregator, agg_opts=a_opts,
                    fault=fault, fault_opts=f_opts,
-                   tracker=tracker, tracker_opts=dict(tracker_opts or {}),
+                   tracker=tracker, tracker_opts=t_opts,
                    store=store, store_opts=st_opts,
                    track_variance=track_variance,
                    mc=M.MethodConfig(name=method, **method_opts))

@@ -297,11 +297,17 @@ register_fault(FaultModel(
 # straggler
 # ---------------------------------------------------------------------------
 
+def straggler_means(opts, idx, m):
+    """Each client's mean latency str_mean (1 + str_skew span_u), f32; the
+    serve queue draws its clients' latencies from the same law."""
+    return opts["str_mean"] * (1.0 + opts["str_skew"] * _span(idx, m))
+
+
 def straggler_plan_from(opts, idx, m, e):
     """The straggler plan given the slots' standard exponentials `e` (C,):
     latency mean_u e_u against the deadline; survival 1 - exp(-T / mean_u)
     in closed form, so the HT factor is exact per client."""
-    mean = opts["str_mean"] * (1.0 + opts["str_skew"] * _span(idx, m))
+    mean = straggler_means(opts, idx, m)
     alive = (mean * e <= opts["str_deadline"]).float()
     s = 1.0 - torch.exp(-opts["str_deadline"] / mean)
     return dict(_ones_plan(idx.shape[0]), alive=alive, invp=alive / s)

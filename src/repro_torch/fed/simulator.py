@@ -65,6 +65,14 @@ worker stages; round r's rows are written back before round r + 1's are
 gathered.  Per round its params, state and diagnostics equal the device
 store's bitwise, at every K.
 
+Telemetry (`repro_torch.track`, DESIGN.md §10): with a sink other than
+`none`, each round's scalar diagnostics (one row, 0 for a bubble) go to the
+tracker right after its server section, in one device-to-host copy;
+`corrupt_frac` (byzantine faults) and `gvar_proxy` (`track_variance`) are
+sink-only rows, and under the host store each row carries the store's
+`host_mem_peak` and `prefetch_overlap_frac`.  A tracked run's params and
+state are bitwise an untracked one's; `tracker="none"` adds nothing.
+
 The simulator runs on the CUDA device unless `device` says otherwise; it
 raises when no card is present instead of carrying on on the CPU.  Its
 rounds and `evaluate` run inside `utils.device.deterministic_f32`, whatever
@@ -82,6 +90,7 @@ import torch
 from torch.func import grad, vmap
 
 from repro_torch import comm
+from repro_torch import track
 from repro_torch.fed import aggregators
 from repro_torch.fed import api
 from repro_torch.fed import faults
@@ -91,7 +100,7 @@ from repro_torch.fed import store as store_lib
 from repro_torch.fed.api import FLConfig  # noqa: F401  (re-export)
 from repro_torch.utils.device import deterministic_f32, resolve_device
 from repro_torch.utils.tree_math import (flat_spec, tree_bytes, tree_leaves,
-                                         tree_map, unravel)
+                                         tree_map, tree_norm_sq, unravel)
 
 
 def _tensor(x, dtype, device=None):
@@ -118,9 +127,13 @@ class Draws(tp.NamedTuple):
 
 class Simulator:
     def __init__(self, task: M.Task, params, data, fl: FLConfig, seed=0,
-                 device=None):
+                 device=None, tracker=None):
         """data: dict(images (N, ...), labels (N,), client_idx (M, n_max)
-        padded with -1, client_sizes (M,)) as numpy arrays."""
+        padded with -1, client_sizes (M,)) as numpy arrays.
+
+        tracker: a `repro_torch.track.Tracker` instance that overrides
+        `fl.tracker` / `fl.tracker_opts` (a composite a server loop built,
+        a memory sink a test reads)."""
         self.device = dev = resolve_device(device)
         self.task, self.fl = task, fl
         self.method = api.get_method(fl.method)
@@ -184,6 +197,14 @@ class Simulator:
             if self._fm_flips else None
         self._fgen = torch.Generator().manual_seed(
             int(seed) ^ faults.FAULT_SALT)
+        # streaming telemetry (repro_torch.track): each round's scalar
+        # diagnostics go to the sink once its server section is done; the
+        # "none" sink wires no emitter, so an untracked round is unchanged
+        self.tracker = tracker if tracker is not None \
+            else track.make_tracker(fl.tracker, **fl.tracker_opts)
+        self._track_on = not isinstance(self.tracker, track.NullTracker)
+        self._emit = track.emitter(self.tracker) if self._track_on else None
+        self._track_var = bool(fl.track_variance)
         self._client_update = self._client_fn()
         self.agg = aggregators.get_aggregator(fl.aggregator)
         self._agg_opts = aggregators.resolve_opts(self.agg, fl.agg_opts)
@@ -226,8 +247,9 @@ class Simulator:
         """The client pass with its wrappers, innermost first: the fault
         plan's corruption (the adversary controls its raw upload and its
         labels), the federated slice, the sampler's statistics (on the raw
-        f32 upload), the codec's encode (the server aggregates straight off
-        the wire)."""
+        f32 upload), the telemetry upload ||upload||^2 (`track_variance`),
+        the codec's encode (the server aggregates straight off the
+        wire)."""
         fn = self.method.client_update
         if self._fm_corrupts or self._fm_flips:
             fn = faults.wrap_client(fn, self._n_classes)
@@ -236,6 +258,8 @@ class Simulator:
         if self.smp.needs_norms or self._sketch_proj is not None:
             fn = sampling.with_stats(fn, norm=self.smp.needs_norms,
                                      proj=self._sketch_proj)
+        if self._track_var:
+            fn = track.with_grad_stats(fn)
         if self.codec.name != "identity":
             fn = api.with_codec(fn, self.codec)
         return fn
@@ -397,6 +421,10 @@ class Simulator:
             live = (torch.sum(weights) > 0).float()
             weights = torch.where(live > 0, weights, torch.ones_like(weights))
             pending.update(alive=plan["alive"], live=live)
+        if self._track_on and (self._fm_corrupts or self._fm_flips):
+            # the corrupted share of the cohort, for the sink only
+            bad = (plan["gscale"] != 1.0) | (plan["flip"] > 0)
+            pending["corrupt_frac"] = torch.mean(bad.float())
         if fstate is not None:
             pending["fault_state"] = _to(fstate, dev)
         if batch is None:
@@ -411,7 +439,8 @@ class Simulator:
             cstates[faults.FAULT_KEY] = dict(gscale=plan["gscale"],
                                              flip=plan["flip"])
         ctx = api.MethodCtx(self.task, fl.mc)
-        outs = self._client_update(ctx, params, cstates, batches, u)
+        with track.scope(track.CLIENT_PASS):
+            outs = self._client_update(ctx, params, cstates, batches, u)
         pending.update(idx=slots, sizes=sizes, weights=weights,
                        grads=outs.grad, cstates=outs.cstate, aux=outs.aux)
         if invp is not None:
@@ -457,10 +486,11 @@ class Simulator:
                                               idx, cstates, alive=alive)
         agg = None
         if not method.needs_dense_grads:
-            agg = aggregators.aggregate_stack(self.agg, self._agg_opts,
-                                              grads, weights,
-                                              method.beta(fl.mc), codec,
-                                              self._grad_spec)
+            with track.scope(track.AGGREGATE):
+                agg = aggregators.aggregate_stack(self.agg, self._agg_opts,
+                                                  grads, weights,
+                                                  method.beta(fl.mc), codec,
+                                                  self._grad_spec)
             if self._fed_mask is not None and codec is not None:
                 # a lossy wire may leak into the masked leaves: they get
                 # exactly zero update (the identity wire is masked already)
@@ -468,8 +498,9 @@ class Simulator:
             if live is not None:
                 # nobody reported: a zero update, not NaN
                 agg = (tree_map(lambda g: g * live, agg[0]), agg[1] * live)
-        params, new_state, diag = method.server_update(ctx, params, agg,
-                                                       new_state)
+        with track.scope(track.SERVER_UPDATE):
+            params, new_state, diag = method.server_update(ctx, params, agg,
+                                                           new_state)
         diag = {k: v for k, v in diag.items()
                 if torch.is_tensor(v) and v.dim() == 0}
         # uploaded bytes this round: the gradient wire plus the aux uploads
@@ -482,6 +513,24 @@ class Simulator:
             diag["bytes_up"] = torch.sum(alive) * float(
                 self.codec.bytes_per_client()) + float(tree_bytes(aux))
             diag["live"] = torch.sum(alive)
+        # the sink's diagnostics: the fault plan's corrupted share (built in
+        # the client section when a sink is on) and, under track_variance,
+        # the cohort gradient-variance proxy E_w ||g_u||^2 - ||sum_u w_u
+        # g_u||^2 over the normalized weights
+        if "corrupt_frac" in pending:
+            diag["corrupt_frac"] = pending["corrupt_frac"]
+        if self._track_var and track.GNORM_KEY in aux:
+            p_w = weights / torch.clamp(torch.sum(weights), min=1e-30)
+            e2 = torch.sum(p_w * aux[track.GNORM_KEY])
+            if agg is not None:
+                # agg[1]: the aggregate's squared norm (the kernel's second
+                # output on the ncv_weighted_sum path)
+                diag["gvar_proxy"] = torch.clamp(e2 - agg[1], min=0.0)
+            elif dense is not None:
+                gbar = tree_map(lambda g: torch.tensordot(p_w, g, dims=1),
+                                dense)
+                diag["gvar_proxy"] = torch.clamp(e2 - tree_norm_sq(gbar),
+                                                 min=0.0)
         return params, new_state, diag
 
     def _bubble(self, params, state, pending, r):
@@ -502,13 +551,15 @@ class Simulator:
         if not self.fl.staleness:
             self.params, self._state, diag = self._server_section(
                 self.params, self._state, pending, r)
-            return diag
-        if len(self._ring) == self.fl.staleness:
-            self.params, self._state, diag = self._server_section(
-                self.params, self._state, self._ring.pop(0), r)
         else:
-            diag = self._bubble(self.params, self._state, pending, r)
-        self._ring.append(pending)
+            if len(self._ring) == self.fl.staleness:
+                self.params, self._state, diag = self._server_section(
+                    self.params, self._state, self._ring.pop(0), r)
+            else:
+                diag = self._bubble(self.params, self._state, pending, r)
+            self._ring.append(pending)
+        if self._emit is not None:
+            self._emit(r, diag)
         return diag
 
     def run_round(self, draws=None):
@@ -518,6 +569,8 @@ class Simulator:
         if self._host_mode:
             rows = self._run_host(1, None if draws is None else [draws])
             return {k: float(v[0]) for k, v in rows.items()}
+        if self._emit is not None:
+            self._emit.reset()
         diag = self._round(self.draw_round() if draws is None else draws)
         return {k: float(v) for k, v in diag.items()}
 
@@ -533,6 +586,8 @@ class Simulator:
             raise ValueError(f"{len(draws)} draws for {n} rounds")
         if self._host_mode:
             return self._run_host(n, draws)
+        if self._emit is not None:
+            self._emit.reset()
         return self._stack([self._round(self.draw_round() if draws is None
                                         else draws[i]) for i in range(n)])
 
@@ -640,6 +695,8 @@ class Simulator:
         i's windows.  Same draws, same sections, same order as the device
         store: the same bits."""
         k, pf = self.fl.staleness, self._ensure_prefetcher()
+        if self._emit is not None:
+            self._emit.reset()
         ds = [None if draws is None else Draws(*d) for d in
               (draws if draws is not None else [None] * n)]
         ahead = draws is not None or self._draws_ahead
@@ -671,6 +728,10 @@ class Simulator:
         for i in range(n):
             if ahead and i + 1 < n:
                 draw(i + 1)
+            if self._emit is not None:
+                # the host store's gauges ride every row, as published
+                # before the round
+                self._emit.set_host_metrics(self._host_gauges())
             batch = batches[i]().ready()
             buf = states[i]()
             staged = buf["staged"].ready()
@@ -700,6 +761,8 @@ class Simulator:
                            applied.get("alive"), self._round_done())
             if k:
                 self._ring.append(pending)
+            if self._emit is not None:
+                self._emit(r, diag)
             rows.append(diag)
             if i + 1 < n:
                 if not ahead:
@@ -712,16 +775,22 @@ class Simulator:
             pf.submit(lambda: self._host_scatter(*last))()
         return self._stack(rows)
 
-    def host_metrics(self) -> dict:
-        """The host store's counters: peak host RSS, the share of staging
-        time the rounds did not wait for, and the bytes staged to and
-        from the device so far."""
-        pf, st = self._prefetcher, self._staging
+    def _host_gauges(self) -> dict:
+        """The host store's two gauges, which a tracked row carries: peak
+        host RSS and the share of staging time the rounds did not wait
+        for."""
+        pf = self._prefetcher
         return dict(
             host_mem_peak=float(store_lib.host_mem_peak()),
-            prefetch_overlap_frac=0.0 if pf is None else pf.overlap_frac(),
-            staged_bytes_in=0 if st is None else st.bytes_in,
-            staged_bytes_out=0 if st is None else st.bytes_out)
+            prefetch_overlap_frac=0.0 if pf is None else pf.overlap_frac())
+
+    def host_metrics(self) -> dict:
+        """The host store's counters: its two gauges and the bytes staged
+        to and from the device so far."""
+        st = self._staging
+        return dict(self._host_gauges(),
+                    staged_bytes_in=0 if st is None else st.bytes_in,
+                    staged_bytes_out=0 if st is None else st.bytes_out)
 
     def device_state_bytes(self):
         """Bytes of device-resident run state: params and the state dict
@@ -778,6 +847,17 @@ class Simulator:
             pipe["pidx"] = torch.zeros((n, self.fl.cohort), dtype=torch.int64,
                                        device=self.device)
         return pipe
+
+    def _track_resume(self, round_idx):
+        """Re-arm the tracker after a checkpoint restore: the sinks drop
+        rows past `round_idx` (a crashed run may have streamed rounds the
+        checkpoint never saw) and `bytes_up_cum` picks up from the last
+        surviving row, so the file goes on with a monotone round index.
+        Called by `checkpoint.restore_sim`."""
+        if not self._track_on:
+            return
+        last = self.tracker.resume(int(round_idx))
+        self._emit.resume(last)
 
     def set_pipeline_state(self, pipe):
         """Install a restored pipeline (None: a fresh one, K bubbles)."""

@@ -453,6 +453,50 @@ def test_codec_rounds_launch_their_kernels(cuda, codec, opts, wsum):
         assert t.is_cuda and bool(torch.isfinite(t).all())
 
 
+@pytest.mark.parametrize("k", [0, 1])
+def test_served_tracked_rounds_launch_their_kernels(cuda, k):
+    """A served, tracked FedNCV run (beta = 1, track_variance) on the
+    card: one row per round, 2 `rloo_combine` + 1 `ncv_weighted_sum` a
+    round (the bubble and the drain included), and params and state
+    bitwise an untracked run's on the same tables."""
+    from repro_torch import serve, track
+    spec, train, test = federated_splits("cifar10", n_clients=6, alpha=0.1,
+                                         seed=0, scale=0.02)
+    cfg = lenet.LeNetConfig()
+    task = Task(loss=lambda p, b: lenet.loss_fn(cfg, p, b),
+                accuracy=lambda p, b: lenet.accuracy(cfg, p, b))
+    params = lenet.init(cfg, torch.Generator().manual_seed(0))
+
+    def coordinator(tracker):
+        fl = serve.make_serve_config(
+            method="fedncv", n_clients=6, cohort=3, k_micro=3,
+            micro_batch=4, server_lr=0.5, local_lr=0.05, local_epochs=2,
+            ncv_alpha0=0.3, ncv_beta=1.0, staleness=k,
+            track_variance=tracker is not None)
+        sim = Simulator(task, params, train, fl, seed=0, tracker=tracker)
+        queue = serve.ClientQueue(6, avail="markov", checkin_rate=0.9,
+                                  seed=0)
+        return serve.Coordinator(sim, queue, policy="fixed", deadline_s=2.0)
+
+    mem = track.MemoryTracker()
+    a, b = coordinator(mem), coordinator(None)
+    r0, w0 = K.rloo_combine.launches, K.ncv_weighted_sum.launches
+    rows = [a.step() for _ in range(3)] + a.drain()
+    assert K.rloo_combine.launches - r0 == 2 * (3 + k)
+    assert K.ncv_weighted_sum.launches - w0 == 3 + k
+    for _ in range(3):
+        b.step()
+    b.drain()
+    assert [r["round"] for r in mem.rows] == list(range(1, 4 + k))
+    assert all(r["gvar_proxy"] >= 0.0 for r in mem.rows)
+    assert [r["admitted"] for r in mem.rows] == [r["admitted"] for r in rows]
+    for x, v in a.sim.params.items():
+        assert v.is_cuda and torch.equal(v, b.sim.params[x]), x
+    for name, v in a.sim._get_state().items():
+        for p, q in zip(tree_leaves(v), tree_leaves(b.sim._get_state()[name])):
+            assert torch.equal(p, q), name
+
+
 @pytest.mark.parametrize("method", ["fedprox", "scaffold", "fedncv+",
                                     "fedper", "fedrep", "pfedsim",
                                     "fedglomo"])

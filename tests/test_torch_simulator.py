@@ -345,9 +345,11 @@ def test_flconfig_errors_match_reference(kw, err):
 
 
 @pytest.mark.parametrize("kw", [
-    # kw1 and kw3 named the codecs topk and lowrank before they were
-    # ported; they keep their ids and now show that the codec, validated
-    # first, builds, and that the tracker still raises
+    # these ids named registry entries the port did not have yet; with the
+    # codecs and then every tracker ported they keep their ids and assert,
+    # in place, what the reference asserts for each configuration: it
+    # builds, with the reference's tracker, tracker_opts and codec, and the
+    # tracker's registered options and defaults (no sink is constructed)
     dict(tracker="csv"), dict(codec="topk", tracker="csv"),
     dict(tracker="memory"), dict(codec="lowrank", tracker="memory"),
     dict(tracker="stdout"),
@@ -355,9 +357,15 @@ def test_flconfig_errors_match_reference(kw, err):
     dict(tracker="composite"),
 ])
 def test_unported_names_raise_not_ported(kw):
-    JFLConfig.make(**dict(dict(n_clients=6, cohort=3), **kw))   # reference ok
-    with pytest.raises(KeyError, match="not ported"):
-        FLConfig.make(**dict(dict(n_clients=6, cohort=3), **kw))
+    from repro import track as jtrack
+    from repro_torch import track
+    jfl = JFLConfig.make(**dict(dict(n_clients=6, cohort=3), **kw))
+    fl = FLConfig.make(**dict(dict(n_clients=6, cohort=3), **kw))
+    assert (fl.tracker, fl.tracker_opts, fl.codec) == \
+        (jfl.tracker, jfl.tracker_opts, jfl.codec)
+    spec, jspec = track.get_tracker(fl.tracker), jtrack.get_tracker(
+        jfl.tracker)
+    assert (spec.options, spec.defaults) == (jspec.options, jspec.defaults)
 
 
 def test_simulator_without_device_raises_without_a_card(world, monkeypatch):
