@@ -25,9 +25,12 @@ without the final `ok` line:
                every shape they are checked at, each call also one device
                kernel and no copy under torch.profiler); the flash
                kernel at the llama3.2-3b and gemma2-9b prefill shapes (bf16
-               and f32), the reference's sweep (f32), ragged S, and the bf16
+               and f32), the reference's sweep (f32), ragged S, the bf16
                tensor-core kernel's head widths, GQA ratios, masks, short
-               and ragged S and batch edges; the scan at falcon-mamba-7b's
+               and ragged S and batch edges, and the moe family's shapes
+               (llama4's folded chunks (2, 8192, 40/8, hd 128), kimi-k2's
+               hd 112; their plain version computed a batch item and a KV
+               head at a time, and their kernel and SDPA times printed); the scan at falcon-mamba-7b's
                (1, 2048, 131072), the reference's sweep, a batch axis and
                ragged S; the server kernels (`ncv_weighted_sum`, its int8
                wire twin, `rank_band_mean`) on the sampler and fault runs'
@@ -115,9 +118,16 @@ without the final `ok` line:
                slice at full width from random bf16 params: llama3.2-3b
                (28 layers) prefill B 2 x S 4096, falcon-mamba-7b (64 layers)
                B 1 x S 2048, gemma2-9b cut to 2 layers (one local/global
-               pair) B 1 x S 8192; after each prefill the serve loop (batch
-               8, prompt 32, decode 64); then each model in f32, prefill
-               logits against 64 teacher-forced decode steps.  Last, bf16
+               pair) B 1 x S 8192, llama4-scout-17b-a16e cut to 4 layers
+               (3 chunked, 1 global) B 1 x S 16384 (4 flash launches: a
+               folded call per chunked layer), kimi-k2-1t-a32b cut to 1
+               layer B 1 x S 2048 (its init's peak printed); after each
+               prefill the serve loop (batch 8, prompt 32, decode 64); then
+               each model in f32, prefill logits against 64 teacher-forced
+               decode steps (the moe models at capacity factor 8, no slot
+               dropped in either pass; kimi-k2 on its reduced config, since
+               one f32 layer is 78 GB), and llama4's `chunk_ring` decode on
+               its reduced config (chunk 16, 40 steps).  Last, bf16
                llama3.2-3b logits at full width (2 layers, B 1 x S 4096)
                through the flash kernel against the same model with its
                attention taken by the plain version, each layer's
@@ -2185,7 +2195,7 @@ FLASH_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 1e-3)}
 SCAN_TOL = 2e-4                # sequential FMAs vs the doubling scan
 # prefill logits vs teacher-forced decode at full width, f32: the
 # reference's tests/test_decode_equivalence.py tolerances
-DECODE_TOL = {"dense": 2e-3, "ssm": 5e-3}
+DECODE_TOL = {"dense": 2e-3, "moe": 2e-3, "ssm": 5e-3}
 
 
 def event_ms(torch, fn, n_inputs, reps=2):
@@ -2247,7 +2257,16 @@ FLASH_CASES = (
     ("bf16 softcap", 2, 300, 4, 1, 64, "bfloat16", False, None, 30.0),
     ("bf16 window softcap", 2, 700, 4, 2, 256, "bfloat16", True, 200,
      50.0),
+    # the moe family: llama4's chunked layers fold their two 8,192-token
+    # chunks into the batch axis; kimi-k2's hd 112 pads to the 128 panel
+    ("llama4 folded", 2, 8192, 40, 8, 128, "bfloat16", True, None, None),
+    ("kimi-k2", 1, 2048, 64, 8, 112, "bfloat16", True, None, None),
 )
+# the shapes timed: the llama3.2-3b and gemma2-9b prefills, the moe ones
+FLASH_TIMED = ("llama3.2-3b", "gemma2-9b local", "llama4 folded", "kimi-k2")
+# a plain version whose (B, H, S, S) f32 logits exceed this goes a batch
+# item and a KV head at a time
+PLAIN_PIECE_BYTES = 4 << 30
 # the scan's shapes (B, S, C): falcon-mamba-7b's prefill (C = d_inner * N =
 # 8,192 * 16), the reference's sweep, a batch axis and ragged lengths
 SCAN_CASES = ((1, 2048, 131072), (1, 128, 64), (1, 256, 256), (1, 512, 100),
@@ -2262,6 +2281,21 @@ def mamba_like_ab(torch, gen, shape):
     n = torch.arange(shape[-1], dtype=torch.float32) % 16 + 1
     a = torch.exp(-dt * n)
     return a.cuda(), torch.randn(shape, generator=gen).cuda()
+
+
+def plain_flash(torch, ref, q, k, v, **kw):
+    """The plain version, in pieces (a batch item and a KV head's query
+    heads at a time) when its f32 logits would be larger than
+    PLAIN_PIECE_BYTES; each piece is the same function on its slice."""
+    b, s, h, _ = q.shape
+    kv = k.shape[2]
+    if 4 * b * h * s * s <= PLAIN_PIECE_BYTES:
+        return ref(q, k, v, **kw)
+    rep = h // kv
+    return torch.cat([torch.cat([
+        ref(q[i:i + 1, :, j * rep:(j + 1) * rep], k[i:i + 1, :, j:j + 1],
+            v[i:i + 1, :, j:j + 1], **kw) for j in range(kv)], dim=2)
+        for i in range(b)])
 
 
 def lm_kernel_phase(torch, card):
@@ -2282,7 +2316,7 @@ def lm_kernel_phase(torch, card):
                    for n in (h, kv, kv))
         kw = dict(causal=causal, window=window, softcap=softcap)
         got = FA.flash_attention(q, k, v, **kw)
-        want = flash_attention_ref(q, k, v, **kw)
+        want = plain_flash(torch, flash_attention_ref, q, k, v, **kw)
         torch.cuda.synchronize()
         rtol, atol = FLASH_TOL[dt]
         e = check_close(f"flash {label}", got.float(), want.float(), rtol,
@@ -2300,7 +2334,7 @@ def lm_kernel_phase(torch, card):
 
     timed = {}
     for (label, b, s, h, kv, hd, dt, causal, window,
-         softcap) in FLASH_CASES[:2]:
+         softcap) in (c for c in FLASH_CASES if c[0] in FLASH_TIMED):
         dtype = getattr(torch, dt)
         esize = torch.tensor([], dtype=dtype).element_size()
         bytes_in = esize * b * s * hd * (h + 2 * kv)
@@ -2310,9 +2344,10 @@ def lm_kernel_phase(torch, card):
         kw = dict(causal=causal, window=window, softcap=softcap)
         ms = graph_ms(torch, lambda i: FA.flash_attention(*ins[i], **kw),
                       len(ins), replays=3)
-        plain_ms = event_ms(torch, lambda i: flash_attention_ref(*ins[i],
-                                                                 **kw),
-                            len(ins))
+        plain_ms = None           # not timed in pieces
+        if 4 * b * h * s * s <= PLAIN_PIECE_BYTES:
+            plain_ms = event_ms(torch, lambda i: flash_attention_ref(
+                *ins[i], **kw), len(ins))
         library_ms = None
         if softcap is None and window is None:
             # the yardstick only: the port never calls it
@@ -2329,9 +2364,11 @@ def lm_kernel_phase(torch, card):
         # the report line carries the main path's shape (llama3.2-3b)
         lib = "none (no single call)" if library_ms is None else \
             f"{library_ms:.5f} (scaled_dot_product_attention)"
+        plain = "not timed (in pieces)" if plain_ms is None else \
+            f"{plain_ms:.5f}"
         say(f"flash_attention {label} on {card}, {moved} bytes, {ops} flops: "
             f"kernel_ms={ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}) "
-            f"plain_ms={plain_ms:.5f} library_ms={lib}; "
+            f"plain_ms={plain} library_ms={lib}; "
             f"{ops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the bound")
         if label == "llama3.2-3b":
             require(ms <= 4 * bound_ms,
@@ -2383,23 +2420,87 @@ def lm_kernel_phase(torch, card):
 
 SERVE_DECODE = 64              # tokens the serve loop decodes
 CHECK_LEN = 64                 # tokens of the f32 prefill-vs-decode check
+# capacity factor of the moe models' f32 check, as the reference's
+# tests/test_decode_equivalence.py: per-step routing (decode) and
+# whole-sequence routing (prefill) drop other tokens at capacity
+MOE_CHECK_CAPACITY = 8.0
+# one f32 kimi-k2 layer is 78 GB of experts: its f32 check runs reduced
+F32_REDUCED = ("kimi-k2-1t-a32b",)
+RING_LEN = 40                  # llama4 chunk_ring check: chunk 16, 2 crossings
+
+
+def dropped_slots(moe):
+    """Wrap `moe.route` to add up the slots each call drops (on the device,
+    no sync); returns (the running totals, a function that unwraps)."""
+    route, totals = moe.route, []
+
+    def counted(*a):
+        r = route(*a)
+        totals.append((~r["keep"]).sum())
+        return r
+    moe.route = counted
+
+    def unwrap():
+        moe.route = route
+    return totals, unwrap
+
+
+def f32_decode_check(torch, cfg, params, tgen, seq, label, card):
+    """The f32 prefill (the kernels) against `seq` teacher-forced decode
+    steps (plain torch, no kernel); a moe model must drop no slot in either
+    pass."""
+    from repro_torch.launch.train import make_prefill_step, make_serve_step
+    from repro_torch.models import api, moe
+    totals, unwrap = dropped_slots(moe)
+    try:
+        batch = api.make_batch(cfg, tgen, 2, seq, device="cuda")
+        full = make_prefill_step(cfg)(params, batch)
+        cache = api.init_cache(cfg, 2, seq, device="cuda")
+        step = make_serve_step(cfg)
+        outs = []
+        for i in range(seq):
+            lg, cache = step(params, cache, batch["tokens"][:, i:i + 1], i)
+            outs.append(lg[:, 0])
+        dec = torch.stack(outs, dim=1)
+    finally:
+        unwrap()
+    dropped = int(sum(totals).item()) if totals else 0
+    require(dropped == 0, f"{label}: {dropped} slots dropped at capacity "
+                          f"factor {cfg.capacity_factor}")
+    tol = DECODE_TOL[cfg.family]
+    e = check_close(f"{label} f32 prefill vs decode", dec, full, tol, tol)
+    caches = {k: tuple(c["k"].shape) for k, c in cache.items()
+              if isinstance(c, dict) and "k" in c}      # attention caches
+    say(f"{label} f32 ({cfg.n_layers} layers, d_model {cfg.d_model}) on "
+        f"{card}: prefill logits vs {seq} teacher-forced decode steps, max "
+        f"abs err {e:.3e} (tol rtol {tol} atol {tol}), max |logit| "
+        f"{float(full.abs().max()):.3f}, caches {caches}"
+        + (f", {len(totals)} routings, 0 slots dropped" if totals else ""))
 
 
 def lm_slice_phase(torch, card, kernels):
     """Prefill and the serve loop of each model at full width on the card,
     then the f32 prefill against teacher-forced decode; returns each
-    kernel's launches from the first prefill that runs it."""
+    kernel's launches from the first prefill that runs it.  kimi-k2's f32
+    check runs on its reduced config (one f32 layer at full width is 78 GB
+    of experts, no room beside its activations); llama4's `chunk_ring`
+    decode, which 64 steps at full width (chunk 8,192) never reach, is
+    checked on its reduced config (chunk 16) over 40 steps."""
+    from repro_torch import configs
     from repro_torch.launch.profile_lm import (DECODE_BATCH, PROMPT, RUNS,
                                               setup)
     from repro_torch.launch.serve import serve
-    from repro_torch.launch.train import make_prefill_step, make_serve_step
-    from repro_torch.models import api
+    from repro_torch.launch.train import make_prefill_step
+    from repro_torch.models import api, dense
 
     counts = {}
     for run in RUNS:
         arch, b, s, kname = run.arch, run.batch, run.seq, run.kernel
         t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
         cfg, params, tgen = setup(run)
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated()
         n_param = sum(v.numel() for v in params["layers"].values()) + \
             params["embed"].numel()
         prefill = make_prefill_step(cfg)
@@ -2426,8 +2527,8 @@ def lm_slice_phase(torch, card, kernels):
                 f"or of the wrong shape")
         say(f"{arch} ({cfg.n_layers} layers, {n_param} params, {cfg.dtype}) "
             f"prefill on {card}: B={b} S={s} in {sec:.4f} s, "
-            f"{b * s / sec:.1f} tokens/s, peak memory {peak} bytes, "
-            f"launches {launches}")
+            f"{b * s / sec:.1f} tokens/s, peak memory {peak} bytes "
+            f"(init's peak {init_peak}), launches {launches}")
         del logits, batch
 
         toks = api.make_batch(cfg, tgen, DECODE_BATCH, PROMPT,
@@ -2450,27 +2551,45 @@ def lm_slice_phase(torch, card, kernels):
         del params, res
         torch.cuda.empty_cache()
 
-        # f32 at full width: prefill (the kernels) vs teacher-forced decode
-        # (plain torch, no kernel), as tests/test_decode_equivalence.py
-        cfg32, params, tgen = setup(run, "float32")
-        batch = api.make_batch(cfg32, tgen, 2, CHECK_LEN, device="cuda")
-        full = make_prefill_step(cfg32)(params, batch)
-        cache = api.init_cache(cfg32, 2, CHECK_LEN, device="cuda")
-        step = make_serve_step(cfg32)
-        outs = []
-        for i in range(CHECK_LEN):
-            lg, cache = step(params, cache, batch["tokens"][:, i:i + 1], i)
-            outs.append(lg[:, 0])
-        dec = torch.stack(outs, dim=1)
-        tol = DECODE_TOL[cfg.family]
-        e = check_close(f"{arch} f32 prefill vs decode", dec, full, tol, tol)
-        say(f"{arch} f32 at full width ({cfg.n_layers} layers) on {card}: "
-            f"prefill logits vs {CHECK_LEN} teacher-forced decode steps, max "
-            f"abs err {e:.3e} (tol rtol {tol} atol {tol}), max |logit| "
-            f"{float(full.abs().max()):.3f}; {time.perf_counter() - t0:.1f} "
-            f"s for {arch}")
-        del params, batch, full, cache, dec, outs
+        # f32: prefill (the kernels) vs teacher-forced decode (plain torch,
+        # no kernel), as tests/test_decode_equivalence.py
+        if arch in F32_REDUCED:
+            cfg32 = configs.get(arch).reduced().replace(dtype="float32")
+            params = api.init_params(cfg32, torch.Generator(
+                device="cuda").manual_seed(0), device="cuda")
+            tgen = torch.Generator(device="cuda").manual_seed(1)
+            label = f"{arch} reduced"
+        else:
+            cfg32, params, tgen = setup(run, "float32")
+            label = f"{arch} at full width"
+        if cfg32.family == "moe":
+            cfg32 = cfg32.replace(capacity_factor=MOE_CHECK_CAPACITY)
+        f32_decode_check(torch, cfg32, params, tgen, CHECK_LEN, label, card)
+        say(f"{time.perf_counter() - t0:.1f} s for {arch}")
+        del params
         torch.cuda.empty_cache()
+
+    # llama4's chunked layers decode through a ring of one chunk: reduced
+    # (chunk 16), 40 steps cross two chunk boundaries
+    cfg = configs.get("llama4-scout-17b-a16e").reduced().replace(
+        dtype="float32", capacity_factor=MOE_CHECK_CAPACITY)
+    modes = {j: dense._member_mode(cfg, j, RING_LEN)
+             for j in range(cfg.global_period)}
+    require(modes[0] == "chunk_ring", f"llama4 reduced modes {modes}")
+    params = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        0), device="cuda")
+    before = kernels["flash_attention"].launches
+    f32_decode_check(torch, cfg, params, torch.Generator(
+        device="cuda").manual_seed(1), RING_LEN,
+        f"llama4-scout-17b-a16e reduced, chunk {cfg.attn_chunk}, modes "
+        f"{modes}", card)
+    # the chunked layer: a folded call for the 2 whole chunks and one for
+    # the 8-token tail; the global layer one
+    got = kernels["flash_attention"].launches - before
+    require(got == 3, f"llama4 reduced S={RING_LEN} prefill: {got} flash "
+                      f"launches, want 3")
+    del params
+    torch.cuda.empty_cache()
     return counts
 
 

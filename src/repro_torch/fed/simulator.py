@@ -42,8 +42,10 @@ or a tuple of its leading fields.  `idx` (cohort,) is the cohort and `sel`
 [0, 1) the stochastic codecs' (int8, int4) rounding uniforms, or None to
 draw them; `invp` (cohort,) the sampler's HT factors, None for no
 reweighting; `plan` the fault plan dict(alive, invp, gscale, flip), None to
-draw it; `fault_state` the fault model's state after the round's step
-(markov), None to keep the state.  `draw_round()` returns the simulator's
+draw it; `fault_state` the state of a stateful fault model that the plan
+was drawn from (markov: after the round's step; external: its tables as
+they stood), written back by the round's server section, or None to keep
+the state.  `draw_round()` returns the simulator's
 own draws in that form.  The cohort and rows come from a host
 `torch.Generator` seeded with `seed`, the fault plan from another seeded
 with `seed ^ faults.FAULT_SALT`, and u from a generator on the simulator's
@@ -343,19 +345,21 @@ class Simulator:
         return idx, self._draw_sel(idx)
 
     def _draw_fault(self, idx):
-        """The round's fault plan for cohort `idx` and the fault state after
-        the round's step (None when the model does not step), on the host;
-        (None, None) under fault="none"."""
+        """The round's fault plan for cohort `idx` and, for a stateful
+        model, the state the plan was drawn from (after the round's step,
+        if the model steps; the state as it stands, if not), on the host;
+        (None, None) under fault="none".  The pending carries that state,
+        and the server section writes it back, K rounds late under the
+        ring, as the reference's `_fault_pending` does."""
         if not self._fault_on:
             return None, None
-        fstate = _to(self._state.get("faults"), "cpu")
-        stepped = None
+        state = self._state.get("faults")
+        fstate = _to(state, "cpu")
         if self.fm.step is not None:
-            fstate = stepped = self.fm.step(self._fm_opts, fstate,
-                                            self._fgen)
+            fstate = state = self.fm.step(self._fm_opts, fstate, self._fgen)
         plan = self.fm.plan(self._fm_opts, fstate, self._fgen, idx,
                             self.fl.n_clients)
-        return plan, stepped
+        return plan, state if self.fm.stateful else None
 
     def _draw_uniforms(self):
         """The stochastic-rounding uniforms (cohort, n_chunks, chunk) of the

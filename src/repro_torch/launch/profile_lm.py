@@ -1,9 +1,12 @@
 """Where the time of the port's LM serving slice goes, on one CUDA card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_lm [--out DIR]
+    PYTHONPATH=src python -m repro_torch.launch.profile_lm [--out DIR] \
+        [--only ARCH ...]
 
-For llama3.2-3b (28 layers), falcon-mamba-7b (64 layers) and gemma2-9b cut
-to 2 layers, at full width from random bf16 params: one prefill (the shapes
+For llama3.2-3b (28 layers), falcon-mamba-7b (64 layers), gemma2-9b cut
+to 2 layers, llama4-scout-17b-a16e cut to 4 (one group of 3 chunked layers
+and a global one) and kimi-k2-1t-a32b cut to 1 (33.8 GB of bf16 experts a
+layer), at full width from random bf16 params: one prefill (the shapes
 `chip_smoke.py` runs) and 8 decode steps at batch 8 after a 32-token prompt,
 each under `torch.profiler` after a warm-up and an unprofiled timed run.
 From the exported trace it prints, per run: the host-clock wall time with
@@ -50,7 +53,12 @@ class Run(NamedTuple):
 RUNS = (Run("llama3.2-3b", None, 2, 4096, "flash_attention", 28),
         Run("falcon-mamba-7b", None, 1, 2048, "selective_scan", 64),
         # depth cut to one local/global pair
-        Run("gemma2-9b", 2, 1, 8192, "flash_attention", 2))
+        Run("gemma2-9b", 2, 1, 8192, "flash_attention", 2),
+        # one global_period group; S two 8,192-token chunks, so each
+        # chunked layer is one folded flash call
+        Run("llama4-scout-17b-a16e", 4, 1, 16384, "flash_attention", 4),
+        # one layer: two would leave no room for the activations
+        Run("kimi-k2-1t-a32b", 1, 1, 2048, "flash_attention", 1))
 DECODE_BATCH, PROMPT, DECODE_STEPS = 8, 32, 8
 
 
@@ -130,6 +138,8 @@ def profiled(fn, trace: Path):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=str(ROOT / "build" / "profile_lm"))
+    ap.add_argument("--only", nargs="+", choices=[r.arch for r in RUNS],
+                    help="profile these models only (default: every run)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_lm: no CUDA device is available", file=sys.stderr)
@@ -143,6 +153,8 @@ def main(argv=None) -> int:
     print(f"card: {card}; torch {torch.__version__}")
     rows = []
     for run in RUNS:
+        if args.only and run.arch not in args.only:
+            continue
         arch, b, s = run.arch, run.batch, run.seq
         cfg, params, gen = setup(run)
         batch = api.make_batch(cfg, gen, b, s, device="cuda")

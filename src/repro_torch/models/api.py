@@ -8,9 +8,9 @@ architecture family exposes the same entry points, dispatched on
     init_cache(cfg, batch_size, cache_len, device=)   -> decode state
     decode_step(cfg, params, cache, tok, pos)         -> (logits, cache)
 
-`batch` is a dict of (B, S) integer `tokens` and `labels`.  Ported: dense
-and ssm (Mamba-1).  moe, hybrid, encdec and vlm raise KeyError until their
-slices land.  Entry points that make tensors run on the CUDA device unless
+`batch` is a dict of (B, S) integer `tokens` and `labels`.  Ported: dense,
+moe (llama4-scout, kimi-k2) and ssm (Mamba-1).  hybrid, encdec and vlm
+raise KeyError until their slices land.  Entry points that make tensors run on the CUDA device unless
 the caller passes `device="cpu"`.
 """
 from __future__ import annotations
@@ -18,15 +18,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import dense, ssm
+from repro_torch.models import dense, moe, ssm
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree_math import tree_map
 
 _FAMILIES = {
     "dense": dense,
+    "moe": moe,
     "ssm": ssm,
 }
-NOT_PORTED = ("moe", "hybrid", "encdec", "vlm")
+NOT_PORTED = ("hybrid", "encdec", "vlm")
 
 
 def family_module(cfg: ArchConfig):

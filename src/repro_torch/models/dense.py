@@ -2,8 +2,9 @@
 
 Covers mistral-large-123b, llama3.2-3b, phi3-mini-3.8b (uniform causal
 layers) and gemma2-9b (alternating local/global attention, attention softcap
-50, final logit softcap 30, sqrt(d) input scaling).  llama4's chunked
-layers arrive with the moe family.
+50, final logit softcap 30, sqrt(d) input scaling).  Its layer pattern,
+attention members and caches also carry the moe family (`moe.py`), whose
+llama4 has chunked layers (`chunk_ring` caches in decode).
 
 Layers come in *groups*, the repeating attention pattern (1 layer for
 uniform models, 2 for gemma2's local/global pair); stacked (L, ...) leaves
@@ -59,11 +60,12 @@ def layer_params(layers, i):
 # params
 # --------------------------------------------------------------------------
 
-def _stacked_layer_params(cfg: ArchConfig, gen, n_layers, dtype):
+def _stacked_layer_params(cfg: ArchConfig, gen, n_layers, dtype, ffn=True):
+    """Stacked attention, norm and (with `ffn`) SwiGLU leaves."""
     spec = _attn_spec(cfg)
     shapes = L.attn_param_shapes(spec)
     d, f = cfg.d_model, cfg.d_ff
-    names = sorted(shapes) + ["w_gate", "w_up", "w_down"]
+    names = sorted(shapes) + (["w_gate", "w_up", "w_down"] if ffn else [])
     all_shapes = dict(shapes, w_gate=(d, f), w_up=(d, f), w_down=(f, d))
     out = {n: L.dense_init(gen, (n_layers,) + all_shapes[n], dtype)
            for n in names}

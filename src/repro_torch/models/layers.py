@@ -10,9 +10,10 @@ The port of `src/repro/models/layers.py`, in its conventions:
 
 Full-sequence self-attention goes through the flash kernel
 (`kernels/flash_attention`) at every length: its CUDA kernel on the card,
-its plain version on the CPU.  Single-token decode attends over the cache
-with `attend` (plain torch).  Chunked attention (llama4) and cross-attention
-(whisper, the VLM) arrive with their families.
+its plain version on the CPU.  Chunked attention (llama4) folds each whole
+chunk into the batch axis of one flash call, plus one call for a ragged
+tail.  Single-token decode attends over the cache with `attend` (plain
+torch).  Cross-attention (whisper, the VLM) arrives with its families.
 """
 from __future__ import annotations
 
@@ -138,17 +139,46 @@ def init_attn(gen: torch.Generator, spec: AttnParamsSpec, dtype):
             for name, shp in sorted(attn_param_shapes(spec).items())}
 
 
+def chunked_flash_attention(q, k, v, chunk, *, causal=True, window=None,
+                            softcap=None):
+    """The reference's chunked mask, (qi // chunk) == (kj // chunk) with
+    the causal and window terms, through the flash kernel.  Positions start
+    at 0, so the mask is block-diagonal over chunks [0, chunk), [chunk,
+    2 chunk), ...: the n = S // chunk whole chunks fold into the batch axis
+    of one call (B n, chunk, H, hd), a tail of S mod chunk tokens takes a
+    second call, and S <= chunk is one plain call.  Each call sees only its
+    own chunk's keys, so no masked-out tile is visited."""
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    b, s, h, hd = q.shape
+    n, r = divmod(s, chunk)
+    if n == 0:
+        return flash_attention(q, k, v, **kw)
+    m = n * chunk
+
+    def fold(t):
+        # a copy only where B > 1 and a tail leaves the head rows strided
+        return t[:, :m].contiguous().reshape(b * n, chunk, *t.shape[2:])
+
+    out = flash_attention(fold(q), fold(k), fold(v), **kw).reshape(
+        b, m, h, hd)
+    if r == 0:
+        return out
+    # for B = 1 the tail is a view m rows in: hd % 8 == 0 keeps it on a
+    # 16-byte boundary, as the bf16 kernel's tensor maps want
+    tail = flash_attention(*(t[:, m:].contiguous() for t in (q, k, v)),
+                           **kw)
+    return torch.cat([out, tail], dim=1)
+
+
 def attention_block(params, x, positions, spec: AttnParamsSpec, *,
                     causal=True, window=None, chunk=None, softcap=None,
                     rope_theta=10000.0, use_rope=True, kv_x=None,
                     q_scale=None):
-    """Full-sequence self-attention (prefill) through the flash kernel."""
+    """Full-sequence self-attention (prefill) through the flash kernel;
+    `chunk` (llama4) through `chunked_flash_attention`."""
     if kv_x is not None:
         raise NotImplementedError("cross-attention (kv_x) is not ported "
                                   "yet; it arrives with whisper and the VLM")
-    if chunk is not None:
-        raise NotImplementedError("chunked attention is not ported yet; it "
-                                  "arrives with llama4")
     if q_scale is not None:
         raise NotImplementedError("q_scale is not ported yet: the flash "
                                   "kernel keeps the 1/sqrt(hd) temperature")
@@ -160,8 +190,12 @@ def attention_block(params, x, positions, spec: AttnParamsSpec, *,
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    out = flash_attention(q, k, v, causal=causal, window=window,
-                          softcap=softcap)
+    if chunk is None:
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap)
+    else:
+        out = chunked_flash_attention(q, k, v, chunk, causal=causal,
+                                      window=window, softcap=softcap)
     return out.reshape(b, s, h * hd) @ params["wo"]
 
 
@@ -197,12 +231,13 @@ def decode_attention_block(params, x, cache_k, cache_v, pos,
     """Single-token decode. x: (B,1,D); cache: (B,C,KV,hd); pos: int.
 
     mode:
-      "full" — cache holds positions [0, C); valid slots <= pos.
-      "ring" — sliding-window ring buffer of the last C tokens.
-    ("chunk_ring", llama4's chunked cache, arrives with that family.)
+      "full"       — cache holds positions [0, C); valid slots <= pos.
+      "ring"       — sliding-window ring buffer of the last C tokens.
+      "chunk_ring" — llama4 chunked attention: ring of size C == chunk,
+                     valid slots are the current chunk's prefix.
     Returns (out (B,1,D), cache_k, cache_v), the caches updated in place.
     """
-    if mode not in ("full", "ring"):
+    if mode not in ("full", "ring", "chunk_ring"):
         raise NotImplementedError(f"decode mode {mode!r} is not ported yet")
     pos = int(pos)
     b = x.shape[0]
@@ -215,11 +250,13 @@ def decode_attention_block(params, x, cache_k, cache_v, pos,
         posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
         q = apply_rope(q, posb, rope_theta)
         k = apply_rope(k, posb, rope_theta)
-    cache_k, cache_v = cache_update_layer(cache_k, cache_v, k, v, pos,
-                                          ring=mode == "ring")
+    cache_k, cache_v = cache_update_layer(
+        cache_k, cache_v, k, v, pos, ring=mode in ("ring", "chunk_ring"))
     slots = torch.arange(c, device=x.device)
     if mode == "ring":
         valid = slots < min(pos + 1, c)           # last C tokens, any order
+    elif mode == "chunk_ring":
+        valid = slots <= pos % c                  # current chunk's prefix
     else:
         valid = slots <= pos
     out = attend(q, cache_k, cache_v, valid[None, :], softcap=softcap,

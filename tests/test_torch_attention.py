@@ -207,9 +207,18 @@ def test_attention_block_refuses_what_is_not_ported():
     p = {n: torch.from_numpy(a) for n, a in _attn_params(1, SPEC).items()}
     x = torch.zeros(1, 4, 64)
     pos = torch.zeros(1, 4, dtype=torch.int32)
-    for kw in (dict(chunk=2), dict(kv_x=x), dict(q_scale=0.5)):
+    for kw in (dict(kv_x=x), dict(q_scale=0.5)):
         with pytest.raises(NotImplementedError, match="not ported"):
             TL.attention_block(p, x, pos, T_SPEC, **kw)
+    # chunked attention is ported (llama4): the chunk-masked attention
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (1, 5, 64)).astype(np.float32))
+    pos = torch.arange(5, dtype=torch.int32)[None]
+    got = TL.attention_block(p, x, pos, T_SPEC, chunk=2)
+    jp = {n: jnp.asarray(a) for n, a in _attn_params(1, SPEC).items()}
+    want = JL.attention_block(jp, jnp.asarray(x.numpy()),
+                              jnp.asarray(pos.numpy()), SPEC, chunk=2)
+    _close(got, want, TOL)
 
 
 @pytest.mark.parametrize("mode,cache_len,positions", [

@@ -783,3 +783,71 @@ def test_reduced_prefill_launches_its_kernel(cuda, arch, kernel):
     assert fn.launches - before == cfg.n_layers
     # f32 matmuls and sums in other orders on the card
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------- the moe family -------------------------------
+
+def _moe_case(top_k, e, t, dtype):
+    from repro_torch.configs.base import ArchConfig
+    cfg = ArchConfig(name="m", family="moe", n_layers=1, d_model=256,
+                     n_heads=2, n_kv_heads=1, d_ff=64, vocab=64, n_experts=e,
+                     top_k=top_k, d_ff_expert=128,
+                     dtype=str(dtype).split(".")[-1])
+    p = dict(router=_randn(1, 256, e) / 16, w_gate=_randn(2, e, 256, 128) / 16,
+             w_up=_randn(3, e, 256, 128) / 16,
+             w_down=_randn(4, e, 128, 256) / 128 ** 0.5)
+    return cfg, {n: a.to(dtype) for n, a in p.items()}, _randn(5, t, 256).to(
+        dtype)
+
+
+@pytest.mark.parametrize("top_k,e,t,dtype", [
+    (1, 16, 2048, torch.float32),     # llama4's routing, two groups
+    (8, 64, 2048, torch.float32),     # kimi's top-8
+    (8, 64, 8, torch.float32),        # one decode step: cap 8
+    (1, 16, 1024, torch.bfloat16),    # bf16 products with f32 results
+])
+def test_moe_ffn_on_the_card_matches_cpu(cuda, top_k, e, t, dtype):
+    """The routing (experts, slots, drops) is the CPU's bitwise, the gates
+    too at top-1 (exactly 1); the output is within f32 sums in another
+    order (bf16: one rounding of h and of y)."""
+    from repro_torch.models import moe
+    cfg, p, x = _moe_case(top_k, e, t, dtype)
+    pc = {n: a.to(cuda) for n, a in p.items()}
+    y, aux = moe.moe_ffn(cfg, p, x)
+    yc, auxc = moe.moe_ffn(cfg, pc, x.to(cuda))
+    group = min(moe.MOE_GROUP, t)
+    cap = moe._capacity(cfg, group)
+    r = moe.route(cfg, p["router"], x.reshape(-1, group, 256), cap)
+    rc = moe.route(cfg, pc["router"], x.to(cuda).reshape(-1, group, 256),
+                   cap)
+    for key in ("idx", "pos", "keep"):
+        assert torch.equal(rc[key].cpu(), r[key]), key
+    if top_k == 1:
+        assert torch.equal(rc["gates"].cpu(), r["gates"])
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(yc.cpu(), y, rtol=tol, atol=tol)
+    torch.testing.assert_close(auxc.cpu(), aux, rtol=1e-5, atol=0.0)
+    # deterministic: no float atomics in dispatch or combine
+    assert torch.equal(moe.moe_ffn(cfg, pc, x.to(cuda))[0], yc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,chunk,hd", [
+    (2, 512, 128, 64),      # whole chunks: one folded call
+    (2, 300, 128, 64),      # B > 1 with a tail: two calls
+    (1, 300, 128, 112),     # B = 1: the tail a view; kimi's hd
+    (1, 100, 128, 128),     # S < chunk: one plain call
+])
+def test_chunked_flash_matches_masked_plain(cuda, dtype, b, s, chunk, hd):
+    from repro_torch.models import layers as TL
+    q, k, v = (t.to(cuda) for t in _qkv(s + hd, b, s, 4, 2, hd, dtype))
+    before = FA.flash_attention.launches
+    got = TL.chunked_flash_attention(q, k, v, chunk)
+    n, r = divmod(s, chunk)
+    assert FA.flash_attention.launches - before == (
+        1 if n == 0 or r == 0 else 2)
+    mask = TL._make_mask(s, s, causal=True, chunk=chunk, device=cuda)
+    want = TL.attend(q.float(), k.float(), v.float(), mask).to(dtype)
+    rtol, atol = (2e-4, 2e-4) if dtype == torch.float32 else (1e-2, 1e-3)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)

@@ -6,8 +6,8 @@ and `state_dict` over 20 ticks, bitwise the reference's for `none`,
 `markov` and `dropout` at the same seed; the coordinator beside the
 reference's coordinator (each driving its own package's simulator) for 3
 rounds and the drain at K = 0 and K = 1: the external tables it writes
-(idx, both invp, alive), its queue and admission metrics and the rows'
-keys, bitwise.  The round's own numbers are not compared here: each
+(idx, both invp, alive), the `faults` state after each round, its queue
+and admission metrics and the rows' keys, bitwise.  The round's own numbers are not compared here: each
 simulator draws its own microbatch rows (the tracked rounds' parity is
 `tests/test_torch_track.py`).  Port only: the refusals, invp == 1 in a
 uniform world, a save / restore that resumes the exact served trajectory,
@@ -189,14 +189,32 @@ def _recording(c):
     return written
 
 
+def _faults_after(c):
+    """Record the simulator's `faults` state after each of `c`'s rounds
+    (the drain's too): under the ring the server section writes back the
+    table a round was issued with, K rounds late."""
+    after = []
+    step = c.step
+
+    def recorded(**kw):
+        out = step(**kw)
+        st = c.sim._get_state()["faults"]
+        after.append({f: np.asarray(st[f]) for f in sorted(st)})
+        return out
+    c.step = recorded
+    return after
+
+
 @pytest.mark.parametrize("k", [0, 1])
 def test_coordinator_tables_and_metrics_match_reference(toy, k):
     """3 rounds and the drain (K zero-admission rounds): each round's
-    tables, metrics and streamed row keys against the reference's."""
+    tables, the `faults` state after it, metrics and streamed row keys
+    against the reference's."""
     coords = [_coord(toy, staleness=k, tracker=tpkg.make_tracker("memory"),
                      pkg=spkg)
               for tpkg, spkg in ((jtrack, jserve), (track, serve))]
     written = [_recording(c) for c in coords]
+    after = [_faults_after(c) for c in coords]
     outs = [[c.step() for _ in range(3)] + c.drain() for c in coords]
     assert len(outs[1]) == len(outs[0]) == 3 + k
     assert len(written[1]) == len(written[0]) == 3 + k
@@ -205,6 +223,17 @@ def test_coordinator_tables_and_metrics_match_reference(toy, k):
         for key, a in ja.items():
             b = ta[key]
             assert a.dtype == b.dtype and np.array_equal(a, b), (i, key)
+    assert len(after[1]) == len(after[0]) == 3 + k
+    for i, (ja, ta) in enumerate(zip(*after)):
+        assert set(ja) == set(ta)
+        for key, a in ja.items():
+            b = ta[key]
+            assert a.dtype == b.dtype and np.array_equal(a, b), (i, key)
+    if k:
+        # the state after a round holds the table written one round earlier
+        assert not all(np.array_equal(after[1][i]["alive"],
+                                      written[1][i]["faults/alive"])
+                       for i in range(3))
     for i, (jo, to) in enumerate(zip(*outs)):
         assert set(to) == set(jo)
         assert {c: to[c] for c in QUEUE_COLS} == \
