@@ -30,10 +30,14 @@ without the final `ok` line:
                and ragged S and batch edges, and the moe family's shapes
                (llama4's folded chunks (2, 8192, 40/8, hd 128), kimi-k2's
                hd 112; their plain version computed a batch item and a KV
-               head at a time, and their kernel and SDPA times printed); the scan at falcon-mamba-7b's
-               (1, 2048, 131072), the reference's sweep, a batch axis and
-               ragged S; the server kernels (`ncv_weighted_sum`, its int8
-               wire twin, `rank_band_mean`) on the sampler and fault runs'
+               head at a time, and their kernel and SDPA times printed),
+               and zamba2-7b's shared attention (1, 2048, 32/32, hd 112,
+               timed beside SDPA); the scan at falcon-mamba-7b's
+               (1, 2048, 131072), the reference's sweep, a batch axis,
+               ragged S and zamba2-7b's Mamba-2 state (1, 2048, 458752:
+               C = H N P = 112 * 64 * 64, a per head; timed too); the
+               server kernels (`ncv_weighted_sum`, its int8 wire twin,
+               `rank_band_mean`) on the sampler and fault runs'
                inputs: HT weights that are no integers, zero-weight (dropped)
                rows, 10x (byzantine) and sign-flipped rows, byzantine and
                dead rows in one band.  Then device times (CUDA-graph
@@ -121,12 +125,15 @@ without the final `ok` line:
                pair) B 1 x S 8192, llama4-scout-17b-a16e cut to 4 layers
                (3 chunked, 1 global) B 1 x S 16384 (4 flash launches: a
                folded call per chunked layer), kimi-k2-1t-a32b cut to 1
-               layer B 1 x S 2048 (its init's peak printed); after each
-               prefill the serve loop (batch 8, prompt 32, decode 64); then
-               each model in f32, prefill logits against 64 teacher-forced
-               decode steps (the moe models at capacity factor 8, no slot
-               dropped in either pass; kimi-k2 on its reduced config, since
-               one f32 layer is 78 GB), and llama4's `chunk_ring` decode on
+               layer B 1 x S 2048 (its init's peak printed), zamba2-7b (81
+               layers: 54 Mamba-2 blocks, 27 applications of the shared
+               attention block) B 1 x S 2048 (54 scan and 27 flash
+               launches); after each prefill the serve loop (batch 8,
+               prompt 32, decode 64); then each model in f32, prefill
+               logits against 64 teacher-forced decode steps (the moe
+               models at capacity factor 8, no slot dropped in either
+               pass; kimi-k2 on its reduced config, since one f32 layer
+               is 78 GB), and llama4's `chunk_ring` decode on
                its reduced config (chunk 16, 40 steps).  Last, bf16
                llama3.2-3b logits at full width (2 layers, B 1 x S 4096)
                through the flash kernel against the same model with its
@@ -2195,7 +2202,7 @@ FLASH_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 1e-3)}
 SCAN_TOL = 2e-4                # sequential FMAs vs the doubling scan
 # prefill logits vs teacher-forced decode at full width, f32: the
 # reference's tests/test_decode_equivalence.py tolerances
-DECODE_TOL = {"dense": 2e-3, "moe": 2e-3, "ssm": 5e-3}
+DECODE_TOL = {"dense": 2e-3, "moe": 2e-3, "ssm": 5e-3, "hybrid": 5e-3}
 
 
 def event_ms(torch, fn, n_inputs, reps=2):
@@ -2261,16 +2268,26 @@ FLASH_CASES = (
     # chunks into the batch axis; kimi-k2's hd 112 pads to the 128 panel
     ("llama4 folded", 2, 8192, 40, 8, 128, "bfloat16", True, None, None),
     ("kimi-k2", 1, 2048, 64, 8, 112, "bfloat16", True, None, None),
+    # zamba2-7b's shared attention block: MHA 32/32, hd 112
+    ("zamba2-7b", 1, 2048, 32, 32, 112, "bfloat16", True, None, None),
 )
-# the shapes timed: the llama3.2-3b and gemma2-9b prefills, the moe ones
-FLASH_TIMED = ("llama3.2-3b", "gemma2-9b local", "llama4 folded", "kimi-k2")
+# the shapes timed: the llama3.2-3b and gemma2-9b prefills, the moe and
+# hybrid ones
+FLASH_TIMED = ("llama3.2-3b", "gemma2-9b local", "llama4 folded", "kimi-k2",
+               "zamba2-7b")
 # a plain version whose (B, H, S, S) f32 logits exceed this goes a batch
 # item and a KV head at a time
 PLAIN_PIECE_BYTES = 4 << 30
+# zamba2-7b's Mamba-2 prefill: C = H * N * P = 112 * 64 * 64 channels
+ZAMBA2_HEADS = 112
+ZAMBA2_SCAN = (1, 2048, ZAMBA2_HEADS * 64 * 64)
 # the scan's shapes (B, S, C): falcon-mamba-7b's prefill (C = d_inner * N =
-# 8,192 * 16), the reference's sweep, a batch axis and ragged lengths
+# 8,192 * 16), the reference's sweep, a batch axis, ragged lengths and
+# zamba2-7b's prefill; the first and the last are timed
 SCAN_CASES = ((1, 2048, 131072), (1, 128, 64), (1, 256, 256), (1, 512, 100),
-              (1, 1024, 32), (4, 2048, 512), (1, 1000, 4099), (3, 77, 1000))
+              (1, 1024, 32), (4, 2048, 512), (1, 1000, 4099), (3, 77, 1000),
+              ZAMBA2_SCAN)
+SCAN_TIMED = (SCAN_CASES[0], ZAMBA2_SCAN)
 
 
 def mamba_like_ab(torch, gen, shape):
@@ -2281,6 +2298,26 @@ def mamba_like_ab(torch, gen, shape):
     n = torch.arange(shape[-1], dtype=torch.float32) % 16 + 1
     a = torch.exp(-dt * n)
     return a.cuda(), torch.randn(shape, generator=gen).cuda()
+
+
+def mamba2_like_ab(torch, gen, shape, heads):
+    """a and b as a Mamba-2 block makes them, drawn on the card: one
+    a = exp(-dt exp(A_log)) per (step, head), broadcast over the head's
+    N * P channels (`ops.scan_states`' materialised a), dt a softplus near
+    0.018 and A_log drawn near 0 (the init's value) per head."""
+    b_, s, c = shape
+    a_log = torch.randn(heads, generator=gen, device="cuda") * 0.5
+    dt = torch.nn.functional.softplus(torch.randn(
+        b_, s, heads, generator=gen, device="cuda") * 0.5 - 4.0)
+    a = torch.exp(-dt * torch.exp(a_log))
+    a = a[..., None].expand(b_, s, heads, c // heads).reshape(shape)
+    return a, torch.randn(shape, generator=gen, device="cuda")
+
+
+def scan_ab(torch, gen, cuda_gen, shape):
+    if shape == ZAMBA2_SCAN:
+        return mamba2_like_ab(torch, cuda_gen, shape, ZAMBA2_HEADS)
+    return mamba_like_ab(torch, gen, shape)
 
 
 def plain_flash(torch, ref, q, k, v, **kw):
@@ -2383,8 +2420,9 @@ def lm_kernel_phase(torch, card):
         max_abs_err=max(errs), **timed["llama3.2-3b"])
 
     errs = []
+    cuda_gen = torch.Generator(device="cuda").manual_seed(3)
     for shape in SCAN_CASES:
-        a, b = mamba_like_ab(torch, gen, shape)
+        a, b = scan_ab(torch, gen, cuda_gen, shape)
         h = SS.selective_scan(a, b)
         hr = selective_scan_ref(a, b)
         torch.cuda.synchronize()
@@ -2395,26 +2433,32 @@ def lm_kernel_phase(torch, card):
         say(f"selective_scan (B,S,C)={shape}: max abs err {e:.3e} (tol rtol "
             f"{SCAN_TOL} atol {SCAN_TOL}) deterministic")
         del a, b, h, hr
-    shape = SCAN_CASES[0]
-    n_el = shape[0] * shape[1] * shape[2]
-    ins = [mamba_like_ab(torch, gen, shape)
-           for _ in range(n_rotating(8 * n_el))]
-    ms = graph_ms(torch, lambda i: SS.selective_scan(*ins[i]), len(ins),
-                  replays=5)
-    plain_ms = event_ms(torch, lambda i: selective_scan_ref(*ins[i]),
-                        len(ins))
-    moved = 12 * n_el
-    bound_ms, bound_by = bound_of(moved, 2 * n_el)
+    timed = {}
+    for shape in SCAN_TIMED:
+        n_el = shape[0] * shape[1] * shape[2]
+        ins = [scan_ab(torch, gen, cuda_gen, shape)
+               for _ in range(n_rotating(8 * n_el))]
+        ms = graph_ms(torch, lambda i: SS.selective_scan(*ins[i]), len(ins),
+                      replays=5)
+        plain_ms = event_ms(torch, lambda i: selective_scan_ref(*ins[i]),
+                            len(ins))
+        moved = 12 * n_el
+        bound_ms, bound_by = bound_of(moved, 2 * n_el)
+        timed[shape] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=None)
+        say(f"selective_scan (B,S,C)={shape} on {card}, {moved} bytes: "
+            f"kernel_ms={ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}) "
+            f"plain_ms={plain_ms:.5f} library_ms=none (no single call); "
+            f"{bound_ms / ms:.3f} of the bound")
+        del ins
+        torch.cuda.empty_cache()
+    # the report line carries falcon-mamba-7b's shape, as before
     reports["selective_scan"] = dict(
         name="selective_scan", route="cuda",
         source="src/repro_torch/kernels/selective_scan/csrc/"
                "selective_scan.cu",
         replaces="src/repro/kernels/selective_scan/selective_scan.py:49",
-        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None)
-    say(f"selective_scan (B,S,C)={shape} on {card}, {moved} bytes: "
-        f"kernel_ms={ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}) "
-        f"plain_ms={plain_ms:.5f} library_ms=none (no single call)")
+        max_abs_err=max(errs), **timed[SCAN_TIMED[0]])
     return reports
 
 
@@ -2492,17 +2536,17 @@ def lm_slice_phase(torch, card, kernels):
     from repro_torch.launch.serve import serve
     from repro_torch.launch.train import make_prefill_step
     from repro_torch.models import api, dense
+    from repro_torch.utils.tree_math import tree_leaves
 
     counts = {}
     for run in RUNS:
-        arch, b, s, kname = run.arch, run.batch, run.seq, run.kernel
+        arch, b, s = run.arch, run.batch, run.seq
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         cfg, params, tgen = setup(run)
         torch.cuda.synchronize()
         init_peak = torch.cuda.max_memory_allocated()
-        n_param = sum(v.numel() for v in params["layers"].values()) + \
-            params["embed"].numel()
+        n_param = sum(v.numel() for v in tree_leaves(params))
         prefill = make_prefill_step(cfg)
         prefill(params, api.make_batch(cfg, tgen, 1, 256, device="cuda"))
         batch = api.make_batch(cfg, tgen, b, s, device="cuda")
@@ -2516,11 +2560,11 @@ def lm_slice_phase(torch, card, kernels):
         sec = time.perf_counter() - t1
         launches = {n: fn.launches for n, fn in kernels.items()}
         peak = torch.cuda.max_memory_allocated()
-        want = {n: 0 for n in kernels}
-        want[kname] = run.launches
+        want = {n: run.launches.get(n, 0) for n in kernels}
         require(launches == want, f"{arch} prefill: launches {launches}, "
                                   f"want {want}")
-        counts.setdefault(kname, launches[kname])
+        for kname in run.launches:
+            counts.setdefault(kname, launches[kname])
         require(tuple(logits.shape) == (b, s, cfg.vocab) and
                 bool(torch.isfinite(logits).all()),
                 f"{arch}: prefill logits {tuple(logits.shape)} not finite "
@@ -2689,12 +2733,12 @@ def lm_bf16_check(torch, card, fa):
     B 1 x S 4096: attention by the kernel, by the plain version, and by
     the f32 control, over the same weights and tokens."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.launch.profile_lm import Run, setup
+    from repro_torch.launch.profile_lm import FLASH, Run, setup
     from repro_torch.launch.train import make_prefill_step
     from repro_torch.models import api
     from repro_torch.models import layers
 
-    run = Run("llama3.2-3b", 2, 1, 4096, "flash_attention", 2)
+    run = Run("llama3.2-3b", 2, 1, 4096, {FLASH: 2})
     cfg, params, tgen = setup(run)
     batch = api.make_batch(cfg, tgen, run.batch, run.seq, device="cuda")
     prefill = make_prefill_step(cfg)
@@ -2729,9 +2773,9 @@ def lm_bf16_check(torch, card, fa):
 
     fa.launches = 0
     got = logits_with(checked)
-    require(fa.launches == run.launches,
+    require(fa.launches == run.launches[FLASH],
             f"bf16 llama check: {fa.launches} flash launches, want "
-            f"{run.launches}")
+            f"{run.launches[FLASH]}")
     want = logits_with(flash_attention_ref)
     control = logits_with(f32_control)
     norm = float(want.norm())

@@ -5,18 +5,19 @@
 
 For llama3.2-3b (28 layers), falcon-mamba-7b (64 layers), gemma2-9b cut
 to 2 layers, llama4-scout-17b-a16e cut to 4 (one group of 3 chunked layers
-and a global one) and kimi-k2-1t-a32b cut to 1 (33.8 GB of bf16 experts a
-layer), at full width from random bf16 params: one prefill (the shapes
-`chip_smoke.py` runs) and 8 decode steps at batch 8 after a 32-token prompt,
-each under `torch.profiler` after a warm-up and an unprofiled timed run.
-From the exported trace it prints, per run: the host-clock wall time with
-and without the profiler, the device's busy time (the union of kernel
-intervals) and idle share against each wall time, the kernel count, and the
-device time by kernel class (the port's two LM kernels, matrix products,
-everything else) with the top kernels by name.  Writes one JSON object per
-run to `DIR/profile_lm.json` (default `build/profile_lm/` at the root of
-the checkout, which git ignores).  Needs a card; there
-is no CPU fallback.
+and a global one), kimi-k2-1t-a32b cut to 1 (33.8 GB of bf16 experts a
+layer) and zamba2-7b (81 layers: 54 Mamba-2 blocks, 27 applications of the
+shared attention block), at full width from random bf16 params: one
+prefill (the shapes `chip_smoke.py` runs) and 8 decode steps at batch 8
+after a 32-token prompt, each under `torch.profiler` after a warm-up and
+an unprofiled timed run.  From the exported trace it prints, per run: the
+host-clock wall time with and without the profiler, the device's busy time
+(the union of kernel intervals) and idle share against each wall time, the
+kernel count, and the device time by kernel class (the port's two LM
+kernels, matrix products, everything else) with the top kernels by name.
+Writes one JSON object per run to `DIR/profile_lm.json` (default
+`build/profile_lm/` at the root of the checkout, which git ignores).
+Needs a card; there is no CPU fallback.
 """
 from __future__ import annotations
 
@@ -46,19 +47,21 @@ class Run(NamedTuple):
     depth: int | None       # layers kept (None: all)
     batch: int              # prefill batch
     seq: int                # prefill length
-    kernel: str             # the kernel its prefill runs
-    launches: int           # that kernel's launches per prefill
+    launches: dict          # {kernel: its launches per prefill}
 
 
-RUNS = (Run("llama3.2-3b", None, 2, 4096, "flash_attention", 28),
-        Run("falcon-mamba-7b", None, 1, 2048, "selective_scan", 64),
+FLASH, SCAN = "flash_attention", "selective_scan"
+RUNS = (Run("llama3.2-3b", None, 2, 4096, {FLASH: 28}),
+        Run("falcon-mamba-7b", None, 1, 2048, {SCAN: 64}),
         # depth cut to one local/global pair
-        Run("gemma2-9b", 2, 1, 8192, "flash_attention", 2),
+        Run("gemma2-9b", 2, 1, 8192, {FLASH: 2}),
         # one global_period group; S two 8,192-token chunks, so each
         # chunked layer is one folded flash call
-        Run("llama4-scout-17b-a16e", 4, 1, 16384, "flash_attention", 4),
+        Run("llama4-scout-17b-a16e", 4, 1, 16384, {FLASH: 4}),
         # one layer: two would leave no room for the activations
-        Run("kimi-k2-1t-a32b", 1, 1, 2048, "flash_attention", 1))
+        Run("kimi-k2-1t-a32b", 1, 1, 2048, {FLASH: 1}),
+        # falcon-mamba's prefill shape, so the two models' scans compare
+        Run("zamba2-7b", None, 1, 2048, {SCAN: 54, FLASH: 27}))
 DECODE_BATCH, PROMPT, DECODE_STEPS = 8, 32, 8
 
 

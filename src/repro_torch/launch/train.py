@@ -2,8 +2,9 @@
 serve steps).
 
 `make_prefill_step` is the full-sequence forward (`api.logits`): on the
-card every dense layer's attention runs the flash kernel and every Mamba-1
-layer's scan the selective-scan kernel.  `make_serve_step` is the one-token
+card every attention layer (the hybrid's shared block at each application)
+runs the flash kernel and every Mamba-1 layer's or Mamba-2 block's scan the
+selective-scan kernel.  `make_serve_step` is the one-token
 decode against a KV cache or SSM state.  The FedNCV train step arrives with
 the LM training slice.
 """

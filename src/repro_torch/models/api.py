@@ -9,8 +9,9 @@ architecture family exposes the same entry points, dispatched on
     decode_step(cfg, params, cache, tok, pos)         -> (logits, cache)
 
 `batch` is a dict of (B, S) integer `tokens` and `labels`.  Ported: dense,
-moe (llama4-scout, kimi-k2) and ssm (Mamba-1).  hybrid, encdec and vlm
-raise KeyError until their slices land.  Entry points that make tensors run on the CUDA device unless
+moe (llama4-scout, kimi-k2), ssm (Mamba-1) and hybrid (zamba2: Mamba-2 and
+a shared attention block).  encdec and vlm raise KeyError until their
+slices land.  Entry points that make tensors run on the CUDA device unless
 the caller passes `device="cpu"`.
 """
 from __future__ import annotations
@@ -18,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import dense, moe, ssm
+from repro_torch.models import dense, hybrid, moe, ssm
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree_math import tree_map
 
@@ -26,8 +27,9 @@ _FAMILIES = {
     "dense": dense,
     "moe": moe,
     "ssm": ssm,
+    "hybrid": hybrid,
 }
-NOT_PORTED = ("hybrid", "encdec", "vlm")
+NOT_PORTED = ("encdec", "vlm")
 
 
 def family_module(cfg: ArchConfig):

@@ -159,8 +159,9 @@ def loss_fn(cfg: ArchConfig, params, batch):
 # --------------------------------------------------------------------------
 
 # The reference's documented deviation: at very long decode contexts the
-# global layers of sub-quadratic archs (gemma2, llama4) use a windowed ring
-# cache of this size instead of the full cache.
+# global layers of sub-quadratic archs (gemma2, llama4; the hybrid's shared
+# attention) use a windowed ring cache of this size instead of the full
+# cache.
 LONG_DECODE_GLOBAL_WINDOW = 32_768
 
 

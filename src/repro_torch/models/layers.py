@@ -46,6 +46,27 @@ def embed_init(gen: torch.Generator, shape, dtype):
 
 
 # ---------------------------------------------------------------------------
+# products
+# ---------------------------------------------------------------------------
+
+def mm_f32(a, b):
+    """a @ b with an f32 result: exact products of the operands (bf16
+    products are exact in f32) summed in f32, never rounded to the
+    activation dtype.  Where the reference writes (a @ b).astype(f32), XLA
+    folds that cast into the product (the moe family's router and experts,
+    Mamba-1's decode), so this is what it computes.  a (..., m, k) with b
+    (k, n), or a (E, m, k) with b (E, k, n)."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.device.type == "cpu":
+        return a.float() @ b.float()
+    if b.dim() == 3:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+# ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 

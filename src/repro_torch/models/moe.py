@@ -20,7 +20,7 @@ Positions in an expert are counted in int32, and top-k is a stable
 descending sort, so ties pick the lower expert index first as
 `jax.lax.top_k` does.  The rounding points are the reference's as XLA
 compiles it: the router logits and the experts' gate and up products
-keep an f32 result (`_mm_f32`), h and the down product are rounded to
+keep an f32 result (`layers.mm_f32`), h and the down product are rounded to
 the activation dtype, the gates are rounded to it before the combine,
 and the shared expert is added after the routed sum.  The attention pattern and the caches are the dense
 family's (`dense.member_kind`): llama4 has chunked layers with every
@@ -46,27 +46,11 @@ def _capacity(cfg: ArchConfig, group: int) -> int:
     return max(8, int(2 ** math.ceil(math.log2(c))))   # pow2, >= 8
 
 
-def _mm_f32(a, b):
-    """a @ b with an f32 result: exact products of the operands (bf16
-    products are exact in f32) summed in f32, never rounded to the
-    activation dtype.  The reference writes (a @ b).astype(f32), and XLA
-    folds that cast into the product, so this is what it computes.  a (...,
-    m, k) with b (k, n), or a (E, m, k) with b (E, k, n)."""
-    if a.dtype == torch.float32:
-        return a @ b
-    if a.device.type == "cpu":
-        return a.float() @ b.float()
-    if b.dim() == 3:
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
-    return out.reshape(*a.shape[:-1], b.shape[-1])
-
-
 def _swiglu(w_gate, w_up, w_down, x):
     """The reference's SwiGLU as XLA compiles it: the gate and up products
-    in f32 (`_mm_f32`), h rounded to the activation dtype, the down
+    in f32 (`layers.mm_f32`), h rounded to the activation dtype, the down
     product in the activation dtype."""
-    h = F.silu(_mm_f32(x, w_gate)) * _mm_f32(x, w_up)
+    h = F.silu(L.mm_f32(x, w_gate)) * L.mm_f32(x, w_up)
     return torch.matmul(h.to(x.dtype), w_down)
 
 
@@ -78,7 +62,7 @@ def route(cfg: ArchConfig, router, xg, cap: int):
     keep (G, g k) bool (pos < cap)."""
     e, k = cfg.n_experts, cfg.top_k
     n_groups, g = xg.shape[:2]
-    probs = torch.softmax(_mm_f32(xg, router), dim=-1)
+    probs = torch.softmax(L.mm_f32(xg, router), dim=-1)
     top, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, idx = top[..., :k], order[..., :k]
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)

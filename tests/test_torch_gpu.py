@@ -851,3 +851,59 @@ def test_chunked_flash_matches_masked_plain(cuda, dtype, b, s, chunk, hd):
     rtol, atol = (2e-4, 2e-4) if dtype == torch.float32 else (1e-2, 1e-3)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
+
+
+# ------------------------------ the hybrid family ----------------------------
+
+@pytest.mark.parametrize("shape", [(2, 64, 8, 16, 16), (1, 300, 4, 8, 64)])
+def test_scan_states_mamba2_layout_matches_plain(cuda, shape):
+    """The (B, S, H, N, P) state with one a per (step, head), broadcast
+    over (N, P) as `ssm.mamba2_block` passes it: one launch."""
+    a, b = _scan_inputs(sum(shape), shape)
+    a = a[..., :1, :1].to(cuda)
+    b = b.to(cuda)
+    before = SS.selective_scan.launches
+    h = scan_states(a, b)
+    torch.cuda.synchronize()
+    assert SS.selective_scan.launches == before + 1
+    assert h.shape == b.shape and h.dtype == torch.float32
+    bsz, s = shape[:2]
+    hr = selective_scan_ref(a.expand(shape).reshape(bsz, s, -1),
+                            b.reshape(bsz, s, -1))
+    torch.testing.assert_close(h.reshape(bsz, s, -1), hr, rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_reduced_hybrid_on_the_card_matches_cpu(cuda):
+    """Reduced zamba2 at 6 layers (4 Mamba-2 blocks, 2 applications of the
+    shared block), f32: the prefill launches 4 scans and 2 flash calls and
+    matches the CPU's; 16 teacher-forced decode steps launch nothing and
+    match the CPU's step by step, caches included."""
+    from repro_torch.launch.train import make_serve_step
+    cfg = configs.get("zamba2-7b").reduced().replace(dtype="float32",
+                                                     n_layers=6)
+    params = lm_api.init_params(cfg, 0, device="cpu")
+    batch = lm_api.make_batch(cfg, torch.Generator().manual_seed(1), 2, 40,
+                              device="cpu")
+    want = make_prefill_step(cfg)(params, batch)
+    p_cuda = tree_map(lambda x: x.to(cuda), params)
+    b_cuda = {k: v.to(cuda) for k, v in batch.items()}
+    before = (SS.selective_scan.launches, FA.flash_attention.launches)
+    got = make_prefill_step(cfg)(p_cuda, b_cuda)
+    torch.cuda.synchronize()
+    assert (SS.selective_scan.launches - before[0],
+            FA.flash_attention.launches - before[1]) == (4, 2)
+    # f32 matmuls and sums in other orders on the card
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    step = make_serve_step(cfg)
+    cache = lm_api.init_cache(cfg, 2, 16, device="cpu")
+    cache_c = lm_api.init_cache(cfg, 2, 16, device=cuda)
+    before = (SS.selective_scan.launches, FA.flash_attention.launches)
+    for i in range(16):
+        lg, cache = step(params, cache, batch["tokens"][:, i:i + 1], i)
+        lg_c, cache_c = step(p_cuda, cache_c, b_cuda["tokens"][:, i:i + 1], i)
+        torch.testing.assert_close(lg_c.cpu(), lg, rtol=1e-4, atol=1e-4)
+    assert (SS.selective_scan.launches,
+            FA.flash_attention.launches) == before
+    for got_c, want_c in zip(tree_leaves(cache_c), tree_leaves(cache)):
+        torch.testing.assert_close(got_c.cpu(), want_c, rtol=1e-4, atol=1e-4)

@@ -357,6 +357,6 @@ def test_serve_cli_runs_llama4_on_the_cpu():
 
 
 def test_moe_family_is_registered():
-    assert api.NOT_PORTED == ("hybrid", "encdec", "vlm")
+    assert "moe" not in api.NOT_PORTED
     for arch in ARCHS:
         assert api.family_module(configs.get(arch)) is moe
