@@ -69,7 +69,8 @@ def build_variants(build):
             raise RuntimeError(f"variant {name} did not build:\n{log}")
         f = ctypes.CDLL(str(OUT / f"lib{name}.so")).flash_attention_bf16_fwd
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        f.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, cf, vp]
+        f.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf, cf,
+                      vp]
         f.restype = ci
         fns[name] = f
     return fns
@@ -103,7 +104,7 @@ def main() -> int:
             def call(i, f=f):
                 q, k, v = ins[i]
                 rc = f(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       outs[i].data_ptr(), b, s, h, kv, hd, int(causal),
+                       outs[i].data_ptr(), b, s, s, h, kv, hd, int(causal),
                        0 if window is None else window,
                        0.0 if softcap is None else softcap,
                        1.0 / math.sqrt(hd),

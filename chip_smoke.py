@@ -31,8 +31,14 @@ without the final `ok` line:
                (llama4's folded chunks (2, 8192, 40/8, hd 128), kimi-k2's
                hd 112; their plain version computed a batch item and a KV
                head at a time, and their kernel and SDPA times printed),
-               and zamba2-7b's shared attention (1, 2048, 32/32, hd 112,
-               timed beside SDPA); the scan at falcon-mamba-7b's
+               zamba2-7b's shared attention (1, 2048, 32/32, hd 112,
+               timed beside SDPA), whisper-medium's three shapes in bf16
+               and f32 (encoder (8, 1500, 16/16, hd 64, not causal),
+               decoder self (8, 448, causal), cross (8, 448 queries x
+               1,500 keys); encoder and cross timed beside SDPA) and keys
+               of their own length S_kv in both kernels (below and above
+               S, ragged, GQA, causal and window, rows that keep no key);
+               the scan at falcon-mamba-7b's
                (1, 2048, 131072), the reference's sweep, a batch axis,
                ragged S and zamba2-7b's Mamba-2 state (1, 2048, 458752:
                C = H N P = 112 * 64 * 64, a per head; timed too); the
@@ -128,9 +134,14 @@ without the final `ok` line:
                layer B 1 x S 2048 (its init's peak printed), zamba2-7b (81
                layers: 54 Mamba-2 blocks, 27 applications of the shared
                attention block) B 1 x S 2048 (54 scan and 27 flash
-               launches); after each prefill the serve loop (batch 8,
-               prompt 32, decode 64); then each model in f32, prefill
-               logits against 64 teacher-forced decode steps (the moe
+               launches), whisper-medium (24 encoder and 24 decoder
+               layers) B 8 x S 448 over 8 x 1,500 frames (72 flash
+               launches: encoder, decoder self- and cross-attention);
+               after each prefill the serve loop (batch 8, prompt 32,
+               decode 64; whisper's frames encoded into the cross caches
+               first, 24 flash launches); then each model in f32, prefill
+               logits against 64 teacher-forced decode steps (whisper's
+               after `prefill_cross`; the moe
                models at capacity factor 8, no slot dropped in either
                pass; kimi-k2 on its reduced config, since one f32 layer
                is 78 GB), and llama4's `chunk_ring` decode on
@@ -2202,7 +2213,8 @@ FLASH_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 1e-3)}
 SCAN_TOL = 2e-4                # sequential FMAs vs the doubling scan
 # prefill logits vs teacher-forced decode at full width, f32: the
 # reference's tests/test_decode_equivalence.py tolerances
-DECODE_TOL = {"dense": 2e-3, "moe": 2e-3, "ssm": 5e-3, "hybrid": 5e-3}
+DECODE_TOL = {"dense": 2e-3, "moe": 2e-3, "ssm": 5e-3, "hybrid": 5e-3,
+              "encdec": 2e-3}
 
 
 def event_ms(torch, fn, n_inputs, reps=2):
@@ -2223,60 +2235,102 @@ def event_ms(torch, fn, n_inputs, reps=2):
     return start.elapsed_time(end) / (reps * n_inputs)
 
 
-def attn_pairs(s, causal, window):
-    """(query, key) pairs the mask keeps in one (b, h) plane of length s."""
+def attn_pairs(s, causal, window, s_kv=None):
+    """(query, key) pairs the mask keeps in one (b, h) plane of s queries
+    and s_kv keys (default s), the masks top-left aligned."""
+    s_kv = s if s_kv is None else s_kv
     total = 0
     for qi in range(s):
         lo = 0 if window is None else max(0, qi - window + 1)
-        hi = qi if causal else s - 1
-        total += hi - lo + 1
+        hi = min(qi, s_kv - 1) if causal else s_kv - 1
+        total += max(0, hi - lo + 1)
     return total
 
 
-# the flash kernel's shapes: (label, b, s, h, kv, hd, dtype, causal, window,
-# softcap); the first two are the prefill's (timed), then the same shapes
-# in f32, tests/test_kernels.py's SWEEP in f32 and a ragged S
+# the flash kernel's shapes: (label, b, s, s_kv, h, kv, hd, dtype, causal,
+# window, softcap), s the queries' length and s_kv the keys'; the first two
+# are the prefill's (timed), then the same shapes in f32,
+# tests/test_kernels.py's SWEEP in f32 and a ragged S
 FLASH_CASES = (
-    ("llama3.2-3b", 2, 4096, 24, 8, 128, "bfloat16", True, None, None),
-    ("gemma2-9b local", 1, 8192, 16, 8, 256, "bfloat16", True, 4096, 50.0),
-    ("llama3.2-3b f32", 2, 4096, 24, 8, 128, "float32", True, None, None),
-    ("gemma2-9b local f32", 1, 8192, 16, 8, 256, "float32", True, 4096,
+    ("llama3.2-3b", 2, 4096, 4096, 24, 8, 128, "bfloat16", True, None,
+     None),
+    ("gemma2-9b local", 1, 8192, 8192, 16, 8, 256, "bfloat16", True, 4096,
      50.0),
-    ("sweep 1", 2, 256, 4, 2, 128, "float32", True, None, None),
-    ("sweep 2", 1, 128, 4, 4, 64, "float32", True, None, None),
-    ("sweep 3", 1, 256, 2, 1, 128, "float32", True, 128, None),
-    ("sweep 4", 1, 256, 2, 2, 128, "float32", True, None, 30.0),
-    ("sweep 5", 2, 128, 4, 2, 96, "float32", False, None, None),
-    ("sweep 6", 1, 512, 8, 8, 32, "float32", True, 64, 50.0),
-    ("ragged", 1, 1000, 8, 2, 64, "float32", True, 300, None),
-    ("ragged bf16", 2, 1000, 8, 2, 128, "bfloat16", True, None, None),
+    ("llama3.2-3b f32", 2, 4096, 4096, 24, 8, 128, "float32", True, None,
+     None),
+    ("gemma2-9b local f32", 1, 8192, 8192, 16, 8, 256, "float32", True, 4096,
+     50.0),
+    ("sweep 1", 2, 256, 256, 4, 2, 128, "float32", True, None, None),
+    ("sweep 2", 1, 128, 128, 4, 4, 64, "float32", True, None, None),
+    ("sweep 3", 1, 256, 256, 2, 1, 128, "float32", True, 128, None),
+    ("sweep 4", 1, 256, 256, 2, 2, 128, "float32", True, None, 30.0),
+    ("sweep 5", 2, 128, 128, 4, 2, 96, "float32", False, None, None),
+    ("sweep 6", 1, 512, 512, 8, 8, 32, "float32", True, 64, 50.0),
+    ("ragged", 1, 1000, 1000, 8, 2, 64, "float32", True, 300, None),
+    ("ragged bf16", 2, 1000, 1000, 8, 2, 128, "bfloat16", True, None, None),
     # the bf16 tensor-core kernel: every head width it pads (8 and 96 to a
     # 64-column panel; 192, 256 on 64-key tiles), GQA r = 1..4, S below
     # one tile and ragged, B > 1 across the batch edge of its tensor maps,
     # and each mask
-    ("bf16 S=1 r=4", 1, 1, 4, 1, 128, "bfloat16", True, None, None),
-    ("bf16 S=24 hd 8", 2, 24, 6, 2, 8, "bfloat16", True, None, None),
-    ("bf16 hd 64 r=3", 3, 130, 6, 2, 64, "bfloat16", True, None, None),
-    ("bf16 hd 96 r=1", 2, 300, 4, 4, 96, "bfloat16", False, None, None),
-    ("bf16 hd 192", 2, 257, 4, 2, 192, "bfloat16", True, None, None),
-    ("bf16 hd 256 r=4", 2, 1000, 8, 2, 256, "bfloat16", False, None, None),
-    ("bf16 window", 2, 777, 4, 2, 128, "bfloat16", True, 100, None),
-    ("bf16 softcap", 2, 300, 4, 1, 64, "bfloat16", False, None, 30.0),
-    ("bf16 window softcap", 2, 700, 4, 2, 256, "bfloat16", True, 200,
+    ("bf16 S=1 r=4", 1, 1, 1, 4, 1, 128, "bfloat16", True, None, None),
+    ("bf16 S=24 hd 8", 2, 24, 24, 6, 2, 8, "bfloat16", True, None, None),
+    ("bf16 hd 64 r=3", 3, 130, 130, 6, 2, 64, "bfloat16", True, None, None),
+    ("bf16 hd 96 r=1", 2, 300, 300, 4, 4, 96, "bfloat16", False, None, None),
+    ("bf16 hd 192", 2, 257, 257, 4, 2, 192, "bfloat16", True, None, None),
+    ("bf16 hd 256 r=4", 2, 1000, 1000, 8, 2, 256, "bfloat16", False, None,
+     None),
+    ("bf16 window", 2, 777, 777, 4, 2, 128, "bfloat16", True, 100, None),
+    ("bf16 softcap", 2, 300, 300, 4, 1, 64, "bfloat16", False, None, 30.0),
+    ("bf16 window softcap", 2, 700, 700, 4, 2, 256, "bfloat16", True, 200,
      50.0),
     # the moe family: llama4's chunked layers fold their two 8,192-token
     # chunks into the batch axis; kimi-k2's hd 112 pads to the 128 panel
-    ("llama4 folded", 2, 8192, 40, 8, 128, "bfloat16", True, None, None),
-    ("kimi-k2", 1, 2048, 64, 8, 112, "bfloat16", True, None, None),
+    ("llama4 folded", 2, 8192, 8192, 40, 8, 128, "bfloat16", True, None,
+     None),
+    ("kimi-k2", 1, 2048, 2048, 64, 8, 112, "bfloat16", True, None, None),
     # zamba2-7b's shared attention block: MHA 32/32, hd 112
-    ("zamba2-7b", 1, 2048, 32, 32, 112, "bfloat16", True, None, None),
-)
-# the shapes timed: the llama3.2-3b and gemma2-9b prefills, the moe and
-# hybrid ones
+    ("zamba2-7b", 1, 2048, 2048, 32, 32, 112, "bfloat16", True, None, None),
+    # whisper-medium's prefill, 8 clips: the encoder's bidirectional
+    # self-attention over 1,500 frames, the decoder's causal self-attention
+    # over its 448-token context, and its cross-attention, 448 queries onto
+    # the 1,500 encoder states (ragged: 11 * 128 + 92 keys)
+    ("whisper encoder", 8, 1500, 1500, 16, 16, 64, "bfloat16", False, None,
+     None),
+    ("whisper decoder self", 8, 448, 448, 16, 16, 64, "bfloat16", True, None,
+     None),
+    ("whisper cross", 8, 448, 1500, 16, 16, 64, "bfloat16", False, None,
+     None),
+    ("whisper encoder f32", 8, 1500, 1500, 16, 16, 64, "float32", False,
+     None, None),
+    ("whisper decoder self f32", 8, 448, 448, 16, 16, 64, "float32", True,
+     None, None),
+    ("whisper cross f32", 8, 448, 1500, 16, 16, 64, "float32", False, None,
+     None),
+) + tuple(
+    # keys of their own length, in both kernels: S_kv below and above S,
+    # ragged, GQA, causal and window; where S > S_kv a window leaves the
+    # rows qi >= S_kv + window - 1 no key (the mean over all S_kv values)
+    (f"S_kv {label} {dt}", b, s, s_kv, h, kv, hd, dt, causal, window,
+     softcap)
+    for dt in ("bfloat16", "float32")
+    for (label, b, s, s_kv, h, kv, hd, causal, window, softcap) in (
+        ("above", 2, 96, 128, 4, 2, 64, False, None, None),
+        ("below causal", 1, 1000, 300, 8, 2, 128, True, None, None),
+        ("above causal GQA", 1, 300, 1000, 8, 2, 128, True, None, None),
+        ("ragged", 3, 130, 777, 6, 3, 96, False, None, 30.0),
+        ("window, no-key rows", 2, 257, 40, 4, 1, 64, True, 8, None),
+        ("window only, no-key rows", 1, 300, 77, 4, 2, 256, False, 16,
+         None),
+        ("window above", 1, 130, 700, 6, 3, 128, True, 64, 50.0),
+        ("one key", 1, 700, 1, 4, 2, 64, True, 50, None),
+        ("one query", 3, 1, 333, 4, 2, 32, False, None, None),
+    ))
+# the shapes timed: the llama3.2-3b and gemma2-9b prefills, the moe,
+# hybrid and encdec ones
 FLASH_TIMED = ("llama3.2-3b", "gemma2-9b local", "llama4 folded", "kimi-k2",
-               "zamba2-7b")
-# a plain version whose (B, H, S, S) f32 logits exceed this goes a batch
-# item and a KV head at a time
+               "zamba2-7b", "whisper encoder", "whisper cross")
+# a plain version whose (B, H, S, S_kv) f32 logits exceed this goes a
+# batch item and a KV head at a time
 PLAIN_PIECE_BYTES = 4 << 30
 # zamba2-7b's Mamba-2 prefill: C = H * N * P = 112 * 64 * 64 channels
 ZAMBA2_HEADS = 112
@@ -2325,8 +2379,8 @@ def plain_flash(torch, ref, q, k, v, **kw):
     heads at a time) when its f32 logits would be larger than
     PLAIN_PIECE_BYTES; each piece is the same function on its slice."""
     b, s, h, _ = q.shape
-    kv = k.shape[2]
-    if 4 * b * h * s * s <= PLAIN_PIECE_BYTES:
+    s_kv, kv = k.shape[1], k.shape[2]
+    if 4 * b * h * s * s_kv <= PLAIN_PIECE_BYTES:
         return ref(q, k, v, **kw)
     rep = h // kv
     return torch.cat([torch.cat([
@@ -2346,11 +2400,11 @@ def lm_kernel_phase(torch, card):
     gen = torch.Generator().manual_seed(2)
     reports = {}
     errs = []
-    for (label, b, s, h, kv, hd, dt, causal, window,
+    for (label, b, s, s_kv, h, kv, hd, dt, causal, window,
          softcap) in FLASH_CASES:
         dtype = getattr(torch, dt)
-        q, k, v = (torch.randn(b, s, n, hd, generator=gen).to(dtype).cuda()
-                   for n in (h, kv, kv))
+        q, k, v = (torch.randn(b, n, m, hd, generator=gen).to(dtype).cuda()
+                   for n, m in ((s, h), (s_kv, kv), (s_kv, kv)))
         kw = dict(causal=causal, window=window, softcap=softcap)
         got = FA.flash_attention(q, k, v, **kw)
         want = plain_flash(torch, flash_attention_ref, q, k, v, **kw)
@@ -2361,8 +2415,9 @@ def lm_kernel_phase(torch, card):
         require(torch.equal(got, FA.flash_attention(q, k, v, **kw)),
                 f"flash_attention is not deterministic at {label}")
         errs.append(e)
-        say(f"flash_attention {label} (B,S,H,KV,hd)=({b},{s},{h},{kv},{hd}) "
-            f"{dt} causal={causal} window={window} softcap={softcap}: max "
+        say(f"flash_attention {label} (B,S,S_kv,H,KV,hd)=({b},{s},{s_kv},{h},"
+            f"{kv},{hd}) {dt} causal={causal} window={window} "
+            f"softcap={softcap}: max "
             f"abs err {e:.3e} (tol rtol {rtol} atol {atol}), max |out| "
             f"{float(want.float().abs().max()):.3f}, rms out "
             f"{float(want.float().square().mean().sqrt()):.4f}; "
@@ -2370,19 +2425,19 @@ def lm_kernel_phase(torch, card):
         del q, k, v, got, want
 
     timed = {}
-    for (label, b, s, h, kv, hd, dt, causal, window,
+    for (label, b, s, s_kv, h, kv, hd, dt, causal, window,
          softcap) in (c for c in FLASH_CASES if c[0] in FLASH_TIMED):
         dtype = getattr(torch, dt)
         esize = torch.tensor([], dtype=dtype).element_size()
-        bytes_in = esize * b * s * hd * (h + 2 * kv)
-        ins = [tuple(torch.randn(b, s, n, hd, generator=gen).to(dtype).cuda()
-                     for n in (h, kv, kv))
+        bytes_in = esize * b * hd * (s * h + 2 * s_kv * kv)
+        ins = [tuple(torch.randn(b, n, m, hd, generator=gen).to(dtype).cuda()
+                     for n, m in ((s, h), (s_kv, kv), (s_kv, kv)))
                for _ in range(n_rotating(bytes_in))]
         kw = dict(causal=causal, window=window, softcap=softcap)
         ms = graph_ms(torch, lambda i: FA.flash_attention(*ins[i], **kw),
                       len(ins), replays=3)
         plain_ms = None           # not timed in pieces
-        if 4 * b * h * s * s <= PLAIN_PIECE_BYTES:
+        if 4 * b * h * s * s_kv <= PLAIN_PIECE_BYTES:
             plain_ms = event_ms(torch, lambda i: flash_attention_ref(
                 *ins[i], **kw), len(ins))
         library_ms = None
@@ -2393,7 +2448,7 @@ def lm_kernel_phase(torch, card):
                 *(t.transpose(1, 2) for t in ins[i]), is_causal=causal,
                 enable_gqa=True), len(ins), replays=3)
         moved = bytes_in + esize * b * s * h * hd
-        ops = 4 * hd * b * h * attn_pairs(s, causal, window)
+        ops = 4 * hd * b * h * attn_pairs(s, causal, window, s_kv)
         bound_ms, bound_by = max((moved / HBM_BYTES_PER_S * 1e3, "bytes"),
                                  (ops / BF16_OPS_PER_S * 1e3, "operations"))
         timed[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -2491,15 +2546,18 @@ def dropped_slots(moe):
 
 def f32_decode_check(torch, cfg, params, tgen, seq, label, card):
     """The f32 prefill (the kernels) against `seq` teacher-forced decode
-    steps (plain torch, no kernel); a moe model must drop no slot in either
-    pass."""
+    steps (plain torch, no kernel; for encdec after the frames are encoded
+    into the cache, as tests/test_decode_equivalence.py does); a moe model
+    must drop no slot in either pass."""
+    from repro_torch.launch.serve import prepare_cache
     from repro_torch.launch.train import make_prefill_step, make_serve_step
     from repro_torch.models import api, moe
     totals, unwrap = dropped_slots(moe)
     try:
         batch = api.make_batch(cfg, tgen, 2, seq, device="cuda")
         full = make_prefill_step(cfg)(params, batch)
-        cache = api.init_cache(cfg, 2, seq, device="cuda")
+        cache = prepare_cache(cfg, params, 2, seq, "cuda",
+                              batch.get("frames"))
         step = make_serve_step(cfg)
         outs = []
         for i in range(seq):
@@ -2515,6 +2573,8 @@ def f32_decode_check(torch, cfg, params, tgen, seq, label, card):
     e = check_close(f"{label} f32 prefill vs decode", dec, full, tol, tol)
     caches = {k: tuple(c["k"].shape) for k, c in cache.items()
               if isinstance(c, dict) and "k" in c}      # attention caches
+    caches.update({k: tuple(c.shape) for k, c in cache.items()
+                   if k.startswith("cross")})
     say(f"{label} f32 ({cfg.n_layers} layers, d_model {cfg.d_model}) on "
         f"{card}: prefill logits vs {seq} teacher-forced decode steps, max "
         f"abs err {e:.3e} (tol rtol {tol} atol {tol}), max |logit| "
@@ -2575,24 +2635,33 @@ def lm_slice_phase(torch, card, kernels):
             f"(init's peak {init_peak}), launches {launches}")
         del logits, batch
 
-        toks = api.make_batch(cfg, tgen, DECODE_BATCH, PROMPT,
-                              device="cuda")["tokens"]
+        dbatch = api.make_batch(cfg, tgen, DECODE_BATCH, PROMPT,
+                                device="cuda")
         for fn in kernels.values():
             fn.launches = 0
-        res = serve(cfg, params, toks, SERVE_DECODE, "cuda")
+        res = serve(cfg, params, dbatch["tokens"], SERVE_DECODE, "cuda",
+                    frames=dbatch.get("frames"))
         launches = {n: fn.launches for n, fn in kernels.items()}
-        require(all(n == 0 for n in launches.values()),
-                f"{arch} serve: decode launched {launches}")
+        # decode launches nothing; whisper's frames are encoded first
+        want = {n: 0 for n in kernels}
+        if cfg.family == "encdec":
+            want["flash_attention"] = cfg.n_enc_layers
+        require(launches == want, f"{arch} serve: launched {launches}, "
+                                  f"want {want}")
         require(not bool(torch.isnan(res["logits"]).any()),
                 f"{arch} serve: NaN logits")
         require(tuple(res["generated"].shape) ==
                 (DECODE_BATCH, SERVE_DECODE),
                 f"{arch} serve: generated {tuple(res['generated'].shape)}")
-        say(f"{arch} serve on {card}: batch {DECODE_BATCH}, prompt "
+        enc = "" if cfg.family != "encdec" else \
+            (f"frames ({DECODE_BATCH}, {cfg.enc_frames}, {cfg.d_model}) "
+             f"encoded into the cross caches in {res['encode_s']:.4f} s, ")
+        say(f"{arch} serve on {card}: batch {DECODE_BATCH}, {enc}prompt "
             f"{PROMPT} in {res['prompt_s']:.4f} s, decode "
             f"{SERVE_DECODE} in {res['decode_s']:.4f} s -> "
-            f"{res['tok_per_s']:.1f} tok/s, no NaN, kernel launches 0")
-        del params, res
+            f"{res['tok_per_s']:.1f} tok/s, no NaN, kernel launches "
+            f"{launches}")
+        del params, res, dbatch
         torch.cuda.empty_cache()
 
         # f32: prefill (the kernels) vs teacher-forced decode (plain torch,

@@ -4,16 +4,19 @@
 // flash_attention_fwd replaces, for f32 inputs, the TPU kernel
 //   src/repro/kernels/flash_attention/flash_attention.py::flash_attention
 //   (_flash_kernel):
-// q (B, S, H, hd), k/v (B, S, KV, hd), H = r * KV, f32, contiguous
+// q (B, S, H, hd), k/v (B, S_kv, KV, hd), H = r * KV, f32, contiguous
 // -> o (B, S, H, hd) f32, with, for query row qi and key kj,
 //   s = (q * 1/sqrt(hd)) . k              f32
 //   s = c * tanh(s / c)                   softcap c, if given
 //   s = -1e30 where masked                causal kj <= qi; window qi - kj < w
 //   o = sum_j softmax(s)_j v_j            acc / max(l, 1e-30)
-// Query head h reads KV head h / r (the mapping jnp.repeat over heads
-// gives), in place: the (B, H, S, hd) transposes and the repeated K/V of
-// the TPU wrapper are never made.  Keys at or past S are excluded outright,
-// so S needs no padding (the TPU kernel asserts S % 128 == 0).
+// The masks are top-left aligned, as in the TPU kernel: qi and kj both
+// count from 0 whatever S and S_kv are (cross-attention: S_kv of its own,
+// no mask).  Query head h reads KV head h / r (the mapping jnp.repeat over
+// heads gives), in place: the (B, H, S, hd) transposes and the repeated
+// K/V of the TPU wrapper are never made.  Keys at or past S_kv are
+// excluded outright, so neither length needs padding (the TPU kernel
+// asserts S % 128 == 0 and S_kv % 128 == 0).
 //
 // What bounds it on an H100: operations.  At the prefill shapes (S of 4,096
 // and 8,192, hd 128 and 256) attention does some 2 * S * hd flops per byte
@@ -32,8 +35,13 @@
 // banks).  The online-softmax state (m, l) and the per-row correction live
 // in shared memory, the accumulator in registers; P stays f32 up to the
 // output.  Key tiles that the causal mask or the window remove for every
-// row of the block are skipped: each row keeps its diagonal key, so a
-// skipped tile would only have added exp(-1e30 - m) = 0.  Tiles of 32 keys
+// row of the block are skipped: a row that keeps a key has a real logit
+// for its max, so a skipped tile would only have added exp(-1e30 - m) = 0.
+// With S > S_kv a window leaves the rows qi >= S_kv + window - 1 no key at
+// all; their logits are all -1e30, and the reference's softmax of them is
+// the uniform mean of all S_kv values.  A block that holds such a row
+// visits every key tile, so the -1e30 arithmetic gives that mean too (p =
+// exp(0) = 1 for each key).  Tiles of 32 keys
 // for hd > 64 keep the hd = 256 variant within 142 KB of shared memory.
 // No float atomics: the same result from run to run.  (bf16 inputs take
 // the tensor-core kernel of flash_attention_bf16.cu.)
@@ -71,8 +79,8 @@ struct Layout {
 template <typename T, int HDMAX, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int s, int h,
-                 int kvh, int hd, float scale, int causal, int window,
+                 const T* __restrict__ v, T* __restrict__ o, int s, int s_kv,
+                 int h, int kvh, int hd, float scale, int causal, int window,
                  float softcap) {
   using Lay = Layout<HDMAX, BK>;
   constexpr int kCols = BK / 16;      // score columns per thread
@@ -96,8 +104,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long q_row = (long long)h * hd;    // stride of one token in q/o
   const long long kv_row = (long long)kvh * hd; // ... and in k/v
   const T* qb = q + (long long)batch * s * q_row + (long long)head * hd;
-  const T* kb = k + (long long)batch * s * kv_row + (long long)kv_head * hd;
-  const T* vb = v + (long long)batch * s * kv_row + (long long)kv_head * hd;
+  const T* kb = k + (long long)batch * s_kv * kv_row + (long long)kv_head * hd;
+  const T* vb = v + (long long)batch * s_kv * kv_row + (long long)kv_head * hd;
   T* ob = o + (long long)batch * s * q_row + (long long)head * hd;
 
   for (int i = tid; i < kBQ * hd; i += kThreads) {
@@ -119,10 +127,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
 
-  // key tiles that can hold an unmasked key for some row of this block
-  int kt_end = (s + BK - 1) / BK;
-  if (causal) kt_end = min(kt_end, (min(q0 + kBQ, s) - 1) / BK + 1);
-  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  // key tiles that can hold an unmasked key for some row of this block;
+  // all of them where a row keeps no key (its uniform mean)
+  const int q_last = min(q0 + kBQ, s) - 1;
+  int kt_end = (s_kv + BK - 1) / BK;
+  if (causal) kt_end = min(kt_end, q_last / BK + 1);
+  const bool keyless = window > 0 && q_last >= s_kv + window - 1;
+  const int kt_begin =
+      window > 0 && !keyless ? max(0, q0 - window + 1) / BK : 0;
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
@@ -130,7 +142,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < BK * hd; i += kThreads) {
       const int c = i / hd, d = i - c * hd;
       const int kj = k0 + c;
-      const bool in = kj < s;
+      const bool in = kj < s_kv;
       ks[c * Lay::kKStride + d] = in ? to_f32(kb[(long long)kj * kv_row + d]) : 0.f;
       vs[c * Lay::kVStride + d] = in ? to_f32(vb[(long long)kj * kv_row + d]) : 0.f;
     }
@@ -176,7 +188,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (softcap > 0.f) x = softcap * tanhf(x / softcap);
         const bool keep = (!causal || kj <= qi) && (window <= 0 || qi - kj < window);
         x = keep ? x : kMasked;
-        if (kj >= s) x = -INFINITY;   // past the sequence: no weight at all
+        if (kj >= s_kv) x = -INFINITY;  // past the keys: no weight at all
         ps[r * Lay::kPStride + c] = x;
       }
     }
@@ -265,7 +277,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HDMAX, int BK>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int s, int h, int kvh, int hd, int causal, int window,
+           int s, int s_kv, int h, int kvh, int hd, int causal, int window,
            float softcap, float scale, cudaStream_t stream) {
   using Lay = Layout<HDMAX, BK>;
   static bool attr_set = false;
@@ -278,23 +290,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   }
   const dim3 grid((unsigned)((s + kBQ - 1) / kBQ), (unsigned)h, (unsigned)b);
   flash_fwd_kernel<T, HDMAX, BK><<<grid, kThreads, Lay::kBytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, s, h, kvh, hd,
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, s, s_kv, h, kvh, hd,
       scale, causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int b,
-             int s, int h, int kvh, int hd, int causal, int window,
+             int s, int s_kv, int h, int kvh, int hd, int causal, int window,
              float softcap, float scale, cudaStream_t stream) {
   if (hd <= 64)
-    return launch<T, 64, 64>(q, k, v, o, b, s, h, kvh, hd, causal, window,
-                             softcap, scale, stream);
+    return launch<T, 64, 64>(q, k, v, o, b, s, s_kv, h, kvh, hd, causal,
+                             window, softcap, scale, stream);
   if (hd <= 128)
-    return launch<T, 128, 32>(q, k, v, o, b, s, h, kvh, hd, causal, window,
-                              softcap, scale, stream);
-  return launch<T, 256, 32>(q, k, v, o, b, s, h, kvh, hd, causal, window,
-                            softcap, scale, stream);
+    return launch<T, 128, 32>(q, k, v, o, b, s, s_kv, h, kvh, hd, causal,
+                              window, softcap, scale, stream);
+  return launch<T, 256, 32>(q, k, v, o, b, s, s_kv, h, kvh, hd, causal,
+                            window, softcap, scale, stream);
 }
 
 }  // namespace
@@ -302,17 +314,18 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
 extern "C" {
 
 // Returns a CUDA error code (0 on success), or -1 for arguments the kernel
-// does not take.  hd: a multiple of 8 in [8, 256].  window <= 0: no
-// window.  softcap <= 0: no softcap.  scale: the f32 value of 1/sqrt(hd)
-// (the caller rounds it as the reference does).
+// does not take.  s: the query length, s_kv: the key length.  hd: a
+// multiple of 8 in [8, 256].  window <= 0: no window.  softcap <= 0: no
+// softcap.  scale: the f32 value of 1/sqrt(hd) (the caller rounds it as
+// the reference does).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int b, int s, int h, int kvh, int hd, int causal,
-                        int window, float softcap, float scale,
+                        int b, int s, int s_kv, int h, int kvh, int hd,
+                        int causal, int window, float softcap, float scale,
                         void* stream) {
-  if (b < 1 || s < 1 || h < 1 || kvh < 1 || h % kvh != 0 || hd < 8 ||
-      hd > 256 || hd % 8 != 0 || b > 65535 || h > 65535)
+  if (b < 1 || s < 1 || s_kv < 1 || h < 1 || kvh < 1 || h % kvh != 0 ||
+      hd < 8 || hd > 256 || hd % 8 != 0 || b > 65535 || h > 65535)
     return -1;
-  return dispatch<float>(q, k, v, o, b, s, h, kvh, hd, causal, window,
+  return dispatch<float>(q, k, v, o, b, s, s_kv, h, kvh, hd, causal, window,
                          softcap, scale, (cudaStream_t)stream);
 }
 

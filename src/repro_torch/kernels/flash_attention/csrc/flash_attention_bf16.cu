@@ -4,14 +4,16 @@
 // flash_attention_bf16_fwd replaces, for bf16 inputs, the TPU kernel
 //   src/repro/kernels/flash_attention/flash_attention.py::flash_attention
 //   (_flash_kernel):
-// q (B, S, H, hd), k/v (B, S, KV, hd), H = r * KV, bf16, contiguous
+// q (B, S, H, hd), k/v (B, S_kv, KV, hd), H = r * KV, bf16, contiguous
 // -> o (B, S, H, hd) bf16, with, for query row qi and key kj,
 //   s = (q . k) * 1/sqrt(hd)              f32 accumulator, then scaled
 //   s = c * tanh(s / c)                   softcap c, if given
 //   s = -1e30 where masked                causal kj <= qi; window qi - kj < w
 //   o = sum_j softmax(s)_j v_j            acc / max(l, 1e-30)
-// Query head h reads KV head h / r in place; keys at or past S get -inf, so
-// S needs no padding.  (The f32 path is flash_attention.cu.)
+// The masks are top-left aligned (qi and kj count from 0 whatever S and
+// S_kv are).  Query head h reads KV head h / r in place; keys at or past
+// S_kv get -inf, so neither length needs padding.  (The f32 path is
+// flash_attention.cu.)
 //
 // What bounds it on an H100: operations.  At the prefill shapes attention
 // does some 2 * S * hd flops per byte it must move, far above the ~295
@@ -26,14 +28,15 @@
 // 64 of the rows.  The producer brings Q and K and V tiles of BK keys
 // into a ring of two stages in shared memory, each tile as 64-column
 // panels (128-byte rows, 128-byte swizzle), through 4-D tensor maps over
-// (hd, heads, S, B): the hardware zero-fills rows past S and columns past
-// hd, so nothing is padded in device memory and no tile reads into the
-// next batch.  Each consumer warpgroup runs S = Q K^T as wgmma m64nBKk16
-// from shared memory into f32 registers, applies the scale (with log2 e
-// folded in, for exp2; on tiles without masks or softcap, inside the
-// exponent's FMA), softcap and masks on those registers, keeps the
-// online-softmax state per row in registers (row max and sum across the
-// four threads of a quad by shuffles), and runs O += P V as wgmma
+// (hd, heads, S, B) for Q and (hd, KV heads, S_kv, B) for K and V: the
+// hardware zero-fills rows past the length and columns past hd, so nothing
+// is padded in device memory and no tile reads into the next batch.  Each
+// consumer warpgroup runs S = Q K^T as wgmma m64nBKk16 from shared memory
+// into f32 registers, applies the scale (with log2 e folded in, for exp2;
+// on tiles without masks or softcap, inside the exponent's FMA), softcap
+// and masks on those registers, keeps the online-softmax state per row in
+// registers (row max and sum across the four threads of a quad by
+// shuffles), and runs O += P V as wgmma
 // m64nHDPk16 with P from registers and V from shared memory (the
 // transposed-B form).  As in FlashAttention-3, S of tile j is issued
 // together with P V of tile j - 1, so the softmax of tile j runs while
@@ -55,8 +58,11 @@
 // Kept from the CUDA-core kernel: the -1e30 masking arithmetic (a row
 // whose first tiles are all masked carries m = -1e30 until a real key
 // wipes it), tiles that the causal mask or the window remove for every row
-// of an item are skipped, masks are applied only on tiles that need them,
-// and no float atomics (the same result from run to run).  Items are
+// of an item are skipped (an item with a row that keeps no key, which a
+// window leaves where S > S_kv, visits every key tile instead, so that row
+// gets the reference's uniform mean over all S_kv keys), masks are applied
+// only on tiles that need them, and no float atomics (the same result from
+// run to run).  Items are
 // dealt to the blocks in rounds, heaviest first and in alternating order,
 // so every SM gets about the same causal work.
 #include <cuda.h>  // CUtensorMap; cuTensorMapEncodeTiled comes through
@@ -159,7 +165,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // What the softmax of one key tile needs to know.
 struct TileArgs {
-  int s, causal, window;
+  int s_kv, causal, window;
   float scale_l2;              // scale * log2 e
   float cap_in, cap_out;       // scale / softcap, softcap * log2 e; 0: none
   int row, t;   // this thread's first row, its column pair in a quad
@@ -231,7 +237,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2],
           const bool keep = (!a.causal || kj <= qi) &&
                             (a.window <= 0 || qi - kj < a.window);
           x = keep ? x : kMaskedL2;
-          if (kj >= a.s) x = -INFINITY;  // past the sequence: no weight
+          if (kj >= a.s_kv) x = -INFINITY;  // past the keys: no weight
         }
         sc[4 * j + e] = x;
         mx[e / 2] = fmaxf(mx[e / 2], x);
@@ -243,7 +249,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2],
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
     if (plain) mx[r] *= a.scale_l2;          // the scale is > 0
-    const float m_new = fmaxf(m[r], mx[r]);  // finite: key k0 < S
+    const float m_new = fmaxf(m[r], mx[r]);  // finite: key k0 < S_kv
     corr[r] = ex2(m[r] - m_new);
     m[r] = m_new;
     l[r] *= corr[r];
@@ -286,7 +292,8 @@ __device__ __forceinline__ void rescale(float (&o)[HDP / 2],
 }
 
 // One work item: 128 query rows of one (b, h), and the key tiles that can
-// hold an unmasked key for some of those rows.  Items are numbered with
+// hold an unmasked key for some of those rows (all of them if a row keeps
+// no key: its uniform mean).  Items are numbered with
 // the q tile slowest and taken in reverse, so the heaviest causal items
 // come first.
 struct Item {
@@ -294,16 +301,18 @@ struct Item {
 };
 
 template <int BK>
-__device__ __forceinline__ Item item_of(int w, int s, int h, int b,
+__device__ __forceinline__ Item item_of(int w, int s, int s_kv, int h, int b,
                                         int causal, int window) {
   const int n_qt = (s + kBQ - 1) / kBQ;
   Item it;
   it.head = w % h;
   it.batch = (w / h) % b;
   it.q0 = (n_qt - 1 - w / (h * b)) * kBQ;
-  it.kt_end = (s + BK - 1) / BK;
-  if (causal) it.kt_end = min(it.kt_end, (min(it.q0 + kBQ, s) - 1) / BK + 1);
-  it.kt_begin = window > 0 ? max(0, it.q0 - window + 1) / BK : 0;
+  const int q_last = min(it.q0 + kBQ, s) - 1;
+  it.kt_end = (s_kv + BK - 1) / BK;
+  if (causal) it.kt_end = min(it.kt_end, q_last / BK + 1);
+  const bool keyless = window > 0 && q_last >= s_kv + window - 1;
+  it.kt_begin = window > 0 && !keyless ? max(0, it.q0 - window + 1) / BK : 0;
   return it;
 }
 
@@ -319,8 +328,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                   const __grid_constant__ CUtensorMap map_k,
                   const __grid_constant__ CUtensorMap map_v,
-                  __nv_bfloat16* __restrict__ o, int b, int s, int h,
-                  int kvh, int hd, float scale, int causal, int window,
+                  __nv_bfloat16* __restrict__ o, int b, int s, int s_kv,
+                  int h, int kvh, int hd, float scale, int causal, int window,
                   float softcap) {
   using L = Smem<HDP, BK>;
   extern __shared__ uint8_t smem_raw[];
@@ -357,7 +366,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int r = 0;; ++r) {
         const int w = item_index(r, bid, grid);
         if (w >= n_items) break;
-        const Item item = item_of<BK>(w, s, h, b, causal, window);
+        const Item item = item_of<BK>(w, s, s_kv, h, b, causal, window);
         mbar_wait(bar_q_empty, (r & 1) ^ 1);
         mbar_expect_tx(bar_q, L::kPanels * L::kQPanel);
         for (int p = 0; p < L::kPanels; ++p)
@@ -398,15 +407,15 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int r = 0;; ++r) {
       const int w = item_index(r, bid, grid);
       if (w >= n_items) break;
-      const Item item = item_of<BK>(w, s, h, b, causal, window);
+      const Item item = item_of<BK>(w, s, s_kv, h, b, causal, window);
       const int q0w = item.q0 + 64 * cw;   // this warpgroup's first row
       const int row = q0w + 16 * warp + g; // this thread's rows: row, row + 8
-      const TileArgs args{s, causal, window, scale * kLog2e,
+      const TileArgs args{s_kv, causal, window, scale * kLog2e,
                           capped ? scale / softcap : 0.f,
                           capped ? softcap * kLog2e : 0.f, row, t};
       auto edge_of = [&](int k0) {   // does the tile need masks?
         return (causal && k0 + BK - 1 > q0w) ||
-               (window > 0 && q0w + 63 - k0 >= window) || k0 + BK > s;
+               (window > 0 && q0w + 63 - k0 >= window) || k0 + BK > s_kv;
       };
       const int n = item.kt_end - item.kt_begin;   // key tiles, >= 1
 
@@ -553,7 +562,7 @@ bool make_map(CUtensorMap* map, EncodeTiledFn encode, const void* ptr, int b,
 
 template <int HDP, int BK>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int s, int h, int kvh, int hd, int causal, int window,
+           int s, int s_kv, int h, int kvh, int hd, int causal, int window,
            float softcap, float scale, cudaStream_t stream) {
   using L = Smem<HDP, BK>;
   static bool attr_set = false;
@@ -568,8 +577,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   if (encode == nullptr) return -2;
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, encode, q, b, s, h, hd, kBQ) ||
-      !make_map(&mk, encode, k, b, s, kvh, hd, BK) ||
-      !make_map(&mv, encode, v, b, s, kvh, hd, BK))
+      !make_map(&mk, encode, k, b, s_kv, kvh, hd, BK) ||
+      !make_map(&mv, encode, v, b, s_kv, kvh, hd, BK))
     return -3;
   // persistent: one block per SM, or one per item if there are fewer
   int device = 0, n_sm = 0;
@@ -581,8 +590,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   const long long n_items = (long long)((s + kBQ - 1) / kBQ) * h * b;
   const int grid = (int)(n_items < n_sm ? n_items : n_sm);
   flash_bf16_kernel<HDP, BK><<<grid, kThreads, L::kBytes, stream>>>(
-      mq, mk, mv, (__nv_bfloat16*)o, b, s, h, kvh, hd, scale, causal, window,
-      softcap);
+      mq, mk, mv, (__nv_bfloat16*)o, b, s, s_kv, h, kvh, hd, scale, causal,
+      window, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -592,15 +601,16 @@ extern "C" {
 
 // Returns a CUDA error code (0 on success); -1 for arguments the kernel
 // does not take, -2 if the CUDA driver has no cuTensorMapEncodeTiled, -3 if a
-// tensor map could not be made.  hd: a multiple of 8 in [8, 256]; at most
-// 2^30 items of 128 rows.  Every pointer 16-byte aligned.  window <= 0: no
-// window.  softcap <= 0: no softcap.  scale: the f32 value of 1/sqrt(hd).
+// tensor map could not be made.  s: the query length, s_kv: the key
+// length.  hd: a multiple of 8 in [8, 256]; at most 2^30 items of 128
+// rows.  Every pointer 16-byte aligned.  window <= 0: no window.
+// softcap <= 0: no softcap.  scale: the f32 value of 1/sqrt(hd).
 int flash_attention_bf16_fwd(const void* q, const void* k, const void* v,
-                             void* o, int b, int s, int h, int kvh, int hd,
-                             int causal, int window, float softcap,
+                             void* o, int b, int s, int s_kv, int h, int kvh,
+                             int hd, int causal, int window, float softcap,
                              float scale, void* stream) {
-  if (b < 1 || s < 1 || h < 1 || kvh < 1 || h % kvh != 0 || hd < 8 ||
-      hd > 256 || hd % 8 != 0 ||
+  if (b < 1 || s < 1 || s_kv < 1 || h < 1 || kvh < 1 || h % kvh != 0 ||
+      hd < 8 || hd > 256 || hd % 8 != 0 ||
       (long long)((s + kBQ - 1) / kBQ) * h * b > (1 << 30))
     return -1;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -609,15 +619,15 @@ int flash_attention_bf16_fwd(const void* q, const void* k, const void* v,
     return -1;
   const cudaStream_t st = (cudaStream_t)stream;
   if (hd <= 64)
-    return launch<64, 128>(q, k, v, o, b, s, h, kvh, hd, causal, window,
-                           softcap, scale, st);
+    return launch<64, 128>(q, k, v, o, b, s, s_kv, h, kvh, hd, causal,
+                           window, softcap, scale, st);
   if (hd <= 128)
-    return launch<128, 128>(q, k, v, o, b, s, h, kvh, hd, causal, window,
-                            softcap, scale, st);
+    return launch<128, 128>(q, k, v, o, b, s, s_kv, h, kvh, hd, causal,
+                            window, softcap, scale, st);
   if (hd <= 192)
-    return launch<192, 64>(q, k, v, o, b, s, h, kvh, hd, causal, window,
-                           softcap, scale, st);
-  return launch<256, 64>(q, k, v, o, b, s, h, kvh, hd, causal, window,
+    return launch<192, 64>(q, k, v, o, b, s, s_kv, h, kvh, hd, causal,
+                           window, softcap, scale, st);
+  return launch<256, 64>(q, k, v, o, b, s, s_kv, h, kvh, hd, causal, window,
                          softcap, scale, st);
 }
 

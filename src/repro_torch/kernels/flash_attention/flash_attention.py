@@ -5,8 +5,12 @@
 `flash_attention` — the online-softmax attention forward of
 `src/repro/kernels/flash_attention/flash_attention.py`: GQA (query head h
 reads KV head h // (H / KV)), causal, sliding window (qi - kj < window) and
-logit softcap c * tanh(s / c), f32 softmax, output in q's dtype.  Any S; hd
-a multiple of 8 up to 256; f32 or bf16.  The bf16 kernel takes QK^T and P.V
+logit softcap c * tanh(s / c), f32 softmax, output in q's dtype.  Any S
+and any key length S_kv of its own (cross-attention), the masks top-left
+aligned as in the TPU kernel; hd a multiple of 8 up to 256; f32 or bf16.
+A window with S > S_kv leaves the rows qi >= S_kv + window - 1 no key; like
+the plain version (whose masked logit is -1e30, not -inf) they take the
+mean of all S_kv values.  The bf16 kernel takes QK^T and P.V
 from bf16 operands into f32 accumulators, with P split into two bf16
 halves (hi + lo), so it stays within one bf16 step of the plain version's
 f32 P.  It also stands for the reference's
@@ -42,14 +46,16 @@ def _fn(dtype):
         lib_name, entry = _ENTRIES[dtype]
         f = getattr(build.load(lib_name), entry)
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        f.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, cf, vp]
+        f.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf, cf,
+                      vp]
         f.restype = ci
         _FNS[dtype] = f
     return _FNS[dtype]
 
 
 def _check_args(q, k, v, window, softcap):
-    """Shapes and options both paths take; returns (B, S, H, KV, hd)."""
+    """Shapes and options both paths take; returns (B, S, S_kv, H, KV,
+    hd)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
@@ -59,22 +65,23 @@ def _check_args(q, k, v, window, softcap):
     b, s, h, hd = q.shape
     if k.shape != v.shape:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
-    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != hd:
+    if k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q "
-                         f"{tuple(q.shape)} (self-attention: same B, S, hd)")
-    kv = k.shape[2]
+                         f"{tuple(q.shape)} (same B and hd)")
+    s_kv, kv = k.shape[1], k.shape[2]
     if h % kv:
         raise ValueError(f"H={h} is not a multiple of KV={kv}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
-    return b, s, h, kv, hd
+    return b, s, s_kv, h, kv, hd
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
-    """q (B, S, H, hd), k/v (B, S, KV, hd) -> (B, S, H, hd) in q's dtype."""
-    b, s, h, kv, hd = _check_args(q, k, v, window, softcap)
+    """q (B, S, H, hd), k/v (B, S_kv, KV, hd) -> (B, S, H, hd) in q's
+    dtype."""
+    b, s, s_kv, h, kv, hd = _check_args(q, k, v, window, softcap)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
@@ -111,7 +118,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                s, h, kv, hd, int(bool(causal)),
+                s, s_kv, h, kv, hd, int(bool(causal)),
                 0 if window is None else int(window),
                 0.0 if softcap is None else float(softcap),
                 1.0 / math.sqrt(hd), stream)

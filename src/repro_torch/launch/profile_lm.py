@@ -6,12 +6,15 @@
 For llama3.2-3b (28 layers), falcon-mamba-7b (64 layers), gemma2-9b cut
 to 2 layers, llama4-scout-17b-a16e cut to 4 (one group of 3 chunked layers
 and a global one), kimi-k2-1t-a32b cut to 1 (33.8 GB of bf16 experts a
-layer) and zamba2-7b (81 layers: 54 Mamba-2 blocks, 27 applications of the
-shared attention block), at full width from random bf16 params: one
-prefill (the shapes `chip_smoke.py` runs) and 8 decode steps at batch 8
-after a 32-token prompt, each under `torch.profiler` after a warm-up and
-an unprofiled timed run.  From the exported trace it prints, per run: the
-host-clock wall time with and without the profiler, the device's busy time
+layer), zamba2-7b (81 layers: 54 Mamba-2 blocks, 27 applications of the
+shared attention block) and whisper-medium (24 encoder and 24 decoder
+layers; 8 clips of 1,500 frames, the decoder's 448-token context), at
+full width from random bf16 params: one prefill (the shapes
+`chip_smoke.py` runs) and 8 decode steps at batch 8 after a 32-token
+prompt (whisper's frames encoded into the cache first), each under
+`torch.profiler` after a warm-up and an unprofiled timed run.  From the
+exported trace it prints, per run: the host-clock wall time with and
+without the profiler, the device's busy time
 (the union of kernel intervals) and idle share against each wall time, the
 kernel count, and the device time by kernel class (the port's two LM
 kernels, matrix products, everything else) with the top kernels by name.
@@ -34,6 +37,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import configs
+from repro_torch.launch.serve import prepare_cache
 from repro_torch.launch.train import make_prefill_step, make_serve_step
 from repro_torch.models import api
 
@@ -61,7 +65,10 @@ RUNS = (Run("llama3.2-3b", None, 2, 4096, {FLASH: 28}),
         # one layer: two would leave no room for the activations
         Run("kimi-k2-1t-a32b", 1, 1, 2048, {FLASH: 1}),
         # falcon-mamba's prefill shape, so the two models' scans compare
-        Run("zamba2-7b", None, 1, 2048, {SCAN: 54, FLASH: 27}))
+        Run("zamba2-7b", None, 1, 2048, {SCAN: 54, FLASH: 27}),
+        # 8 clips of 30 s (1,500 frames) and the decoder's 448-token
+        # context: 24 encoder, 24 decoder self- and 24 cross-attention calls
+        Run("whisper-medium", None, 8, 448, {FLASH: 72}))
 DECODE_BATCH, PROMPT, DECODE_STEPS = 8, 32, 8
 
 
@@ -168,12 +175,14 @@ def main(argv=None) -> int:
             out / f"trace_prefill_{arch}.json")
         row["prefill"].update(batch=b, seq=s)
         del batch
-        toks = api.make_batch(cfg, gen, DECODE_BATCH, PROMPT,
-                              device="cuda")["tokens"]
+        dbatch = api.make_batch(cfg, gen, DECODE_BATCH, PROMPT, device="cuda")
+        toks = dbatch["tokens"]
         step = make_serve_step(cfg)
         # `decode` runs three times (warm-up, timed, profiled)
-        cache = api.init_cache(cfg, DECODE_BATCH, PROMPT + 3 * DECODE_STEPS,
-                               device="cuda")
+        cache = prepare_cache(cfg, params, DECODE_BATCH,
+                              PROMPT + 3 * DECODE_STEPS, "cuda",
+                              dbatch.get("frames"))
+        del dbatch
         for i in range(PROMPT):
             _, cache = step(params, cache, toks[:, i:i + 1], i)
         tok = toks[:, -1:]

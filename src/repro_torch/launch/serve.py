@@ -5,9 +5,12 @@
         --reduced --batch 8 --prompt 32 --decode 64 [--device cpu]
 
 The prompt is teacher-forced through `make_serve_step` (the decode step, as
-the reference does), then `--decode` tokens are decoded greedily.  Prints
-the decode rate and `ok`; exits nonzero on NaN logits.  Runs on the CUDA
-device unless `--device cpu` is given.
+the reference does), then `--decode` tokens are decoded greedily.  For the
+encdec family (whisper) the batch's frames are encoded first (the flash
+kernel, one call an encoder layer) and `prefill_cross` fills each decoder
+layer's cross-attention K/V from the encoder states, as the reference's
+CLI does.  Prints the decode rate and `ok`; exits nonzero on NaN logits.
+Runs on the CUDA device unless `--device cpu` is given.
 """
 from __future__ import annotations
 
@@ -18,19 +21,38 @@ import torch
 
 from repro_torch import configs
 from repro_torch.launch.train import make_serve_step
-from repro_torch.models import api
+from repro_torch.models import api, encdec
 from repro_torch.utils.device import resolve_device
 
 
-def serve(cfg, params, tokens, decode: int, device):
-    """Teacher-force the (B, P) prompt `tokens`, then decode greedily.
-    Returns dict(logits (B, 1, V) of the last step, generated (B, decode),
-    prompt_s, decode_s, tok_per_s); times are synchronised on a card."""
+def prepare_cache(cfg, params, batch_size: int, cache_len: int, device,
+                  frames=None):
+    """The decode cache of `api.init_cache`; for encdec, with the
+    cross-attention K/V of the encoded (B, T_enc, d_model) `frames`."""
+    cache = api.init_cache(cfg, batch_size, cache_len, device=device)
+    if cfg.family != "encdec":
+        return cache
+    if frames is None:
+        raise ValueError(f"{cfg.name}: the encdec family decodes against "
+                         f"encoded frames; pass the batch's `frames`")
+    with torch.inference_mode():
+        enc_out = encdec.encode(cfg, params, frames)
+        return encdec.prefill_cross(cfg, params, cache, enc_out)
+
+
+def serve(cfg, params, tokens, decode: int, device, frames=None):
+    """Teacher-force the (B, P) prompt `tokens`, then decode greedily; for
+    encdec, the (B, T_enc, d_model) `frames` are encoded into the cache
+    first.  Returns dict(logits (B, 1, V) of the last step, generated (B,
+    decode), encode_s, prompt_s, decode_s, tok_per_s); times are
+    synchronised on a card."""
     dev = torch.device(device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     batch, prompt = tokens.shape
-    cache = api.init_cache(cfg, batch, prompt + decode, device=dev)
+    t_enc = time.perf_counter()
+    cache = prepare_cache(cfg, params, batch, prompt + decode, dev, frames)
     step = make_serve_step(cfg)
+    sync()
     t0 = time.perf_counter()
     logits = None
     for i in range(prompt):
@@ -46,7 +68,8 @@ def serve(cfg, params, tokens, decode: int, device):
     sync()
     dt = time.perf_counter() - t1
     return dict(logits=logits, generated=torch.cat(out, dim=1),
-                prompt_s=t1 - t0, decode_s=dt, tok_per_s=batch * decode / dt)
+                encode_s=t0 - t_enc, prompt_s=t1 - t0, decode_s=dt,
+                tok_per_s=batch * decode / dt)
 
 
 def main(argv=None):
@@ -67,7 +90,8 @@ def main(argv=None):
     params = api.init_params(cfg, 0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     batch = api.make_batch(cfg, gen, args.batch, args.prompt, device=dev)
-    res = serve(cfg, params, batch["tokens"], args.decode, dev)
+    res = serve(cfg, params, batch["tokens"], args.decode, dev,
+                frames=batch.get("frames"))
     print(f"{cfg.name}: decoded {args.decode} x batch {args.batch} in "
           f"{res['decode_s']:.2f}s -> {res['tok_per_s']:.1f} tok/s on {dev}")
     if bool(torch.isnan(res["logits"]).any()):

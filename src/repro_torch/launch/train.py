@@ -2,10 +2,12 @@
 serve steps).
 
 `make_prefill_step` is the full-sequence forward (`api.logits`): on the
-card every attention layer (the hybrid's shared block at each application)
-runs the flash kernel and every Mamba-1 layer's or Mamba-2 block's scan the
-selective-scan kernel.  `make_serve_step` is the one-token
-decode against a KV cache or SSM state.  The FedNCV train step arrives with
+card every attention layer (the hybrid's shared block at each application;
+whisper's encoder self-attention and its decoder's self- and
+cross-attention) runs the flash kernel and every Mamba-1 layer's or
+Mamba-2 block's scan the selective-scan kernel.  `make_serve_step` is the
+one-token decode against a KV cache or SSM state (for whisper, after
+`launch/serve.py::prepare_cache` has encoded the frames into it).  The FedNCV train step arrives with
 the LM training slice.
 """
 from __future__ import annotations

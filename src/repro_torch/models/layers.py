@@ -1,5 +1,7 @@
-"""Shared transformer building blocks: norms, RoPE, GQA attention (full and
-sliding-window, optional logit softcap), SwiGLU, KV caches, the loss.
+"""Shared transformer building blocks: norms, RoPE and sinusoidal
+positions, GQA attention (full, sliding-window and chunked self-attention,
+cross-attention; optional logit softcap), SwiGLU and GELU FFNs, KV caches,
+the loss.
 
 The port of `src/repro/models/layers.py`, in its conventions:
 * weights live in the config's dtype (bf16 by default); norms, softmax and
@@ -8,12 +10,13 @@ The port of `src/repro/models/layers.py`, in its conventions:
   over it in Python;
 * activations (B, S, D); q/k/v (B, S, H, hd); dense weights (in, out).
 
-Full-sequence self-attention goes through the flash kernel
+Full-sequence attention goes through the flash kernel
 (`kernels/flash_attention`) at every length: its CUDA kernel on the card,
 its plain version on the CPU.  Chunked attention (llama4) folds each whole
 chunk into the batch axis of one flash call, plus one call for a ragged
-tail.  Single-token decode attends over the cache with `attend` (plain
-torch).  Cross-attention (whisper, the VLM) arrives with its families.
+tail; cross-attention (whisper) is one non-causal call whose keys are the
+memory's, of their own length.  Single-token decode attends over the cache
+with `attend` (plain torch).
 """
 from __future__ import annotations
 
@@ -77,8 +80,16 @@ def rmsnorm(x, weight, eps=1e-6):
     return (out * (1.0 + weight.float())).to(x.dtype)
 
 
+def layernorm(x, weight, bias, eps=1e-5):
+    x32 = x.float()
+    mean = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mean), dim=-1, keepdim=True)
+    out = (x32 - mean) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
-# rotary position embeddings
+# rotary and sinusoidal position embeddings
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim, theta=10000.0, device=None):
@@ -97,6 +108,26 @@ def apply_rope(x, positions, theta=10000.0):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_angles(positions, d_model):
+    """pos / 10000^(2i / d) for the (...) f32 `positions`, (..., d / 2)."""
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32,
+                       device=positions.device)
+    return positions[..., None] / torch.pow(10000.0, dim / d_model)
+
+
+def interleave_sin_cos(angle):
+    """(..., d / 2) angles -> (..., d) f32: sin at even columns, cos at odd
+    ones (not in two halves)."""
+    return torch.stack([torch.sin(angle), torch.cos(angle)],
+                       dim=-1).flatten(-2)
+
+
+def sinusoidal_positions(seq_len, d_model, device=None):
+    """(seq_len, d_model) f32 table of sinusoidal position embeddings."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)
+    return interleave_sin_cos(sinusoidal_angles(pos, d_model))
 
 
 # ---------------------------------------------------------------------------
@@ -195,19 +226,24 @@ def attention_block(params, x, positions, spec: AttnParamsSpec, *,
                     causal=True, window=None, chunk=None, softcap=None,
                     rope_theta=10000.0, use_rope=True, kv_x=None,
                     q_scale=None):
-    """Full-sequence self-attention (prefill) through the flash kernel;
-    `chunk` (llama4) through `chunked_flash_attention`."""
-    if kv_x is not None:
-        raise NotImplementedError("cross-attention (kv_x) is not ported "
-                                  "yet; it arrives with whisper and the VLM")
+    """Full-sequence attention (prefill) through the flash kernel; `chunk`
+    (llama4) through `chunked_flash_attention`.  With `kv_x` (B, S_kv, D),
+    cross-attention: q from x, k and v from kv_x, no RoPE, and every query
+    attends to all of memory (one non-causal flash call, as the
+    reference's all-True mask)."""
     if q_scale is not None:
         raise NotImplementedError("q_scale is not ported yet: the flash "
                                   "kernel keeps the 1/sqrt(hd) temperature")
     b, s, _ = x.shape
     h, kvh, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    src = x if kv_x is None else kv_x
+    s_kv = src.shape[1]
     q = (x @ params["wq"]).reshape(b, s, h, hd)
-    k = (x @ params["wk"]).reshape(b, s, kvh, hd)
-    v = (x @ params["wv"]).reshape(b, s, kvh, hd)
+    k = (src @ params["wk"]).reshape(b, s_kv, kvh, hd)
+    v = (src @ params["wv"]).reshape(b, s_kv, kvh, hd)
+    if kv_x is not None:
+        out = flash_attention(q, k, v, causal=False, softcap=softcap)
+        return out.reshape(b, s, h * hd) @ params["wo"]
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
@@ -299,6 +335,25 @@ def swiglu(params, x):
     gate = F.silu((x @ params["w_gate"]).float())
     up = (x @ params["w_up"]).float()
     return (gate * up).to(x.dtype) @ params["w_down"]
+
+
+def init_gelu_mlp(gen: torch.Generator, d_model, d_ff, dtype):
+    zeros = lambda n: torch.zeros((n,), dtype=dtype,  # noqa: E731
+                                  device=gen.device)
+    return dict(w_in=dense_init(gen, (d_model, d_ff), dtype),
+                b_in=zeros(d_ff),
+                w_out=dense_init(gen, (d_ff, d_model), dtype),
+                b_out=zeros(d_model))
+
+
+def gelu_mlp(params, x):
+    """GELU (tanh form, `jax.nn.gelu`'s default) FFN with biases.  The
+    bias add before the GELU is the last op before the reference's
+    `.astype(f32)`, which XLA computes in f32 without rounding the sum to
+    the activation dtype; so does this, from the product in that dtype."""
+    h = F.gelu((x @ params["w_in"]).float() + params["b_in"].float(),
+               approximate="tanh")
+    return h.to(x.dtype) @ params["w_out"] + params["b_out"]
 
 
 # ---------------------------------------------------------------------------

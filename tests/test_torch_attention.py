@@ -110,8 +110,18 @@ def test_flash_wrapper_checks_shapes_on_every_device():
         FA.flash_attention(q, k, v)
     with pytest.raises(ValueError, match="window"):
         FA.flash_attention(q, q, q, window=0)
-    with pytest.raises(ValueError):
-        FA.flash_attention(q, q[:, :4], q[:, :4])
+    # k and v of their own length (cross-attention): S_kv = 4 against S = 8
+    # is what the reference computes, its masks top-left aligned
+    got = FA.flash_attention(q, q[:, :4], q[:, :4])
+    want = flash_attention_ref(jnp.asarray(q.numpy()),
+                               jnp.asarray(q[:, :4].numpy()),
+                               jnp.asarray(q[:, :4].numpy()))
+    assert got.shape == q.shape
+    _close(got, want, TOL)
+    # but the same batch and head width
+    for bad in (q[:1].expand(2, 8, 4, 16).contiguous(), q[..., :8]):
+        with pytest.raises(ValueError, match="do not match"):
+            FA.flash_attention(q, bad, bad)
 
 
 def test_attend_and_mask_match_reference():
@@ -207,15 +217,27 @@ def test_attention_block_refuses_what_is_not_ported():
     p = {n: torch.from_numpy(a) for n, a in _attn_params(1, SPEC).items()}
     x = torch.zeros(1, 4, 64)
     pos = torch.zeros(1, 4, dtype=torch.int32)
-    for kw in (dict(kv_x=x), dict(q_scale=0.5)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            TL.attention_block(p, x, pos, T_SPEC, **kw)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TL.attention_block(p, x, pos, T_SPEC, q_scale=0.5)
+    jp = {n: jnp.asarray(a) for n, a in _attn_params(1, SPEC).items()}
+    # cross-attention is ported (whisper): 6 queries onto 9 memory states,
+    # no RoPE, all of memory
+    rng = np.random.default_rng(4)
+    xq, mem = (rng.standard_normal((2, n, 64)).astype(np.float32)
+               for n in (6, 9))
+    pos = np.tile(np.arange(6, dtype=np.int32)[None], (2, 1))
+    got = TL.attention_block(p, torch.from_numpy(xq), torch.from_numpy(pos),
+                             T_SPEC, use_rope=False,
+                             kv_x=torch.from_numpy(mem))
+    want = JL.attention_block(jp, jnp.asarray(xq), jnp.asarray(pos), SPEC,
+                              use_rope=False, kv_x=jnp.asarray(mem))
+    assert got.shape == (2, 6, 64)
+    _close(got, want, TOL)
     # chunked attention is ported (llama4): the chunk-masked attention
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (1, 5, 64)).astype(np.float32))
     pos = torch.arange(5, dtype=torch.int32)[None]
     got = TL.attention_block(p, x, pos, T_SPEC, chunk=2)
-    jp = {n: jnp.asarray(a) for n, a in _attn_params(1, SPEC).items()}
     want = JL.attention_block(jp, jnp.asarray(x.numpy()),
                               jnp.asarray(pos.numpy()), SPEC, chunk=2)
     _close(got, want, TOL)

@@ -907,3 +907,94 @@ def test_reduced_hybrid_on_the_card_matches_cpu(cuda):
             FA.flash_attention.launches) == before
     for got_c, want_c in zip(tree_leaves(cache_c), tree_leaves(cache)):
         torch.testing.assert_close(got_c.cpu(), want_c, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------ the encdec family ----------------------------
+
+# (b, s, s_kv, h, kv, hd, causal, window): k and v of their own length S_kv
+# below, equal to and above S, ragged (whisper's 1,500 = 11 * 128 + 92),
+# GQA, every mask; where S > S_kv a window leaves the rows qi >= S_kv +
+# window - 1 no key (their mean over all S_kv values, as the plain
+# version's -1e30 mask gives)
+_SKV_CASES = [
+    (2, 448, 1500, 4, 4, 64, False, None),       # whisper's cross, cut heads
+    (2, 96, 128, 4, 2, 64, False, None),
+    (1, 300, 1000, 8, 2, 128, True, None),
+    (1, 1000, 300, 8, 2, 128, True, None),       # S > S_kv, causal
+    (2, 256, 256, 4, 2, 64, False, None),        # S_kv = S
+    (2, 257, 40, 4, 1, 64, True, 8),             # rows 47.. keep no key
+    (1, 300, 77, 4, 2, 96, False, 16),           # rows 92.., no causal
+    (1, 130, 700, 6, 3, 256, True, 64),
+    (3, 1, 333, 4, 2, 32, False, None),          # one query
+    (1, 700, 1, 4, 2, 64, True, 50),             # one key; rows 50.. none
+]
+
+
+def _flash_skv_case(cuda, seed, b, s, s_kv, h, kv, hd, dtype, **kw):
+    rng = np.random.default_rng(seed)
+    mk = lambda n, length: torch.from_numpy(  # noqa: E731
+        rng.standard_normal((b, length, n, hd)).astype(np.float32)).to(
+            dtype).to(cuda)
+    q, k, v = mk(h, s), mk(kv, s_kv), mk(kv, s_kv)
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    rtol, atol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    assert torch.equal(got, FA.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,s_kv,h,kv,hd,causal,window", _SKV_CASES)
+def test_flash_kernel_takes_its_own_key_length(cuda, b, s, s_kv, h, kv, hd,
+                                               causal, window, dtype):
+    _flash_skv_case(cuda, s + 3 * s_kv + hd, b, s, s_kv, h, kv, hd, dtype,
+                    causal=causal, window=window)
+
+
+def test_flash_wrapper_refuses_other_batch_or_head_width(cuda):
+    q, k, v = (t.to(cuda) for t in _qkv(0, 2, 64, 4, 2, 64, torch.float32))
+    for bad in (k[:1].contiguous(), k[..., :32].contiguous()):
+        with pytest.raises(ValueError, match="do not match"):
+            FA.flash_attention(q, bad, bad)
+
+
+def test_reduced_encdec_on_the_card_matches_cpu(cuda):
+    """Reduced whisper (2 encoder, 2 decoder layers), f32: the prefill
+    launches L_enc + 2 L_dec = 6 flash calls (encoder, decoder self- and
+    cross-attention) and matches the CPU's; the serve loop's cache (the
+    encoder's 2 launches) and 16 teacher-forced decode steps (no launch)
+    match the CPU's step by step, caches included."""
+    from repro_torch.launch.serve import prepare_cache
+    from repro_torch.launch.train import make_serve_step
+    cfg = configs.get("whisper-medium").reduced().replace(dtype="float32")
+    params = lm_api.init_params(cfg, 0, device="cpu")
+    batch = lm_api.make_batch(cfg, torch.Generator().manual_seed(1), 2, 40,
+                              device="cpu")
+    want = make_prefill_step(cfg)(params, batch)
+    p_cuda = tree_map(lambda x: x.to(cuda), params)
+    b_cuda = {k: v.to(cuda) for k, v in batch.items()}
+    before = FA.flash_attention.launches
+    got = make_prefill_step(cfg)(p_cuda, b_cuda)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches - before == \
+        cfg.n_enc_layers + 2 * cfg.n_layers
+    # f32 matmuls and sums in other orders on the card
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    step = make_serve_step(cfg)
+    cache = prepare_cache(cfg, params, 2, 16, "cpu", batch["frames"])
+    before = FA.flash_attention.launches
+    cache_c = prepare_cache(cfg, p_cuda, 2, 16, cuda, b_cuda["frames"])
+    assert FA.flash_attention.launches - before == cfg.n_enc_layers
+    before = FA.flash_attention.launches
+    for i in range(16):
+        lg, cache = step(params, cache, batch["tokens"][:, i:i + 1], i)
+        lg_c, cache_c = step(p_cuda, cache_c, b_cuda["tokens"][:, i:i + 1], i)
+        torch.testing.assert_close(lg_c.cpu(), lg, rtol=1e-4, atol=1e-4)
+    assert FA.flash_attention.launches == before
+    for got_c, want_c in zip(tree_leaves(cache_c), tree_leaves(cache)):
+        torch.testing.assert_close(got_c.cpu(), want_c, rtol=1e-4, atol=1e-4)

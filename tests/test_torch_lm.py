@@ -187,8 +187,9 @@ def test_unknown_arch_raises():
                                   "zamba2-7b", "whisper-medium",
                                   "llama-3.2-vision-11b"])
 def test_unported_families_raise(arch):
-    """A family not ported yet raises; one ported since (moe) does what
-    the reference does: the reference's tree, finite (B, S, V) logits."""
+    """A family not ported yet raises; one ported since (moe, hybrid,
+    encdec) does what the reference does: the reference's tree, finite
+    (B, S, V) logits (whisper's from the frames `make_batch` draws)."""
     cfg = configs.get(arch).reduced()
     if cfg.family not in api.NOT_PORTED:
         _reference_tree(cfg, jconfigs.get(arch).reduced(), 0)
