@@ -35,7 +35,11 @@ without the final `ok` line:
                timed beside SDPA), whisper-medium's three shapes in bf16
                and f32 (encoder (8, 1500, 16/16, hd 64, not causal),
                decoder self (8, 448, causal), cross (8, 448 queries x
-               1,500 keys); encoder and cross timed beside SDPA) and keys
+               1,500 keys); all three timed beside SDPA),
+               llama-3.2-vision-11b's two in bf16 and f32 (self (2, 4096,
+               32/8, hd 128, causal), cross (2, 4,096 queries x 1,601
+               image tokens, GQA, not causal: the last 64-key tile holds
+               one key); both timed beside SDPA) and keys
                of their own length S_kv in both kernels (below and above
                S, ragged, GQA, causal and window, rows that keep no key);
                the scan at falcon-mamba-7b's
@@ -136,12 +140,19 @@ without the final `ok` line:
                attention block) B 1 x S 2048 (54 scan and 27 flash
                launches), whisper-medium (24 encoder and 24 decoder
                layers) B 8 x S 448 over 8 x 1,500 frames (72 flash
-               launches: encoder, decoder self- and cross-attention);
+               launches: encoder, decoder self- and cross-attention),
+               llama-3.2-vision-11b (40 layers: 8 groups of 4
+               self-attention layers and a gated cross-attention layer)
+               B 2 x S 4096 over 2 x 1,601 image tokens (40 flash
+               launches: 32 causal, 8 cross);
                after each prefill the serve loop (batch 8, prompt 32,
                decode 64; whisper's frames encoded into the cross caches
-               first, 24 flash launches); then each model in f32, prefill
+               first, 24 flash launches; the vlm's image K/V filled by
+               `prefill_cross`, no launch); then each model in f32, prefill
                logits against 64 teacher-forced decode steps (whisper's
-               after `prefill_cross`; the moe
+               and the vlm's after `prefill_cross`, the vlm's gates drawn
+               nonzero and printed, since init's zeros make every cross
+               layer the identity; the moe
                models at capacity factor 8, no slot dropped in either
                pass; kimi-k2 on its reduced config, since one f32 layer
                is 78 GB), and llama4's `chunk_ring` decode on
@@ -2214,7 +2225,7 @@ SCAN_TOL = 2e-4                # sequential FMAs vs the doubling scan
 # prefill logits vs teacher-forced decode at full width, f32: the
 # reference's tests/test_decode_equivalence.py tolerances
 DECODE_TOL = {"dense": 2e-3, "moe": 2e-3, "ssm": 5e-3, "hybrid": 5e-3,
-              "encdec": 2e-3}
+              "encdec": 2e-3, "vlm": 2e-3}
 
 
 def event_ms(torch, fn, n_inputs, reps=2):
@@ -2306,6 +2317,17 @@ FLASH_CASES = (
      None, None),
     ("whisper cross f32", 8, 448, 1500, 16, 16, 64, "float32", False, None,
      None),
+    # llama-3.2-vision-11b's prefill: the self layers' causal GQA
+    # attention, and the cross layers' 4,096 queries onto the 1,601 image
+    # tokens (GQA, not causal; 1,601 = 25 * 64 + 1 = 12 * 128 + 65)
+    ("llama-3.2-vision self", 2, 4096, 4096, 32, 8, 128, "bfloat16", True,
+     None, None),
+    ("llama-3.2-vision cross", 2, 4096, 1601, 32, 8, 128, "bfloat16", False,
+     None, None),
+    ("llama-3.2-vision self f32", 2, 4096, 4096, 32, 8, 128, "float32", True,
+     None, None),
+    ("llama-3.2-vision cross f32", 2, 4096, 1601, 32, 8, 128, "float32",
+     False, None, None),
 ) + tuple(
     # keys of their own length, in both kernels: S_kv below and above S,
     # ragged, GQA, causal and window; where S > S_kv a window leaves the
@@ -2326,9 +2348,11 @@ FLASH_CASES = (
         ("one query", 3, 1, 333, 4, 2, 32, False, None, None),
     ))
 # the shapes timed: the llama3.2-3b and gemma2-9b prefills, the moe,
-# hybrid and encdec ones
+# hybrid, encdec and vlm ones
 FLASH_TIMED = ("llama3.2-3b", "gemma2-9b local", "llama4 folded", "kimi-k2",
-               "zamba2-7b", "whisper encoder", "whisper cross")
+               "zamba2-7b", "whisper encoder", "whisper decoder self",
+               "whisper cross", "llama-3.2-vision self",
+               "llama-3.2-vision cross")
 # a plain version whose (B, H, S, S_kv) f32 logits exceed this goes a
 # batch item and a KV head at a time
 PLAIN_PIECE_BYTES = 4 << 30
@@ -2547,8 +2571,9 @@ def dropped_slots(moe):
 def f32_decode_check(torch, cfg, params, tgen, seq, label, card):
     """The f32 prefill (the kernels) against `seq` teacher-forced decode
     steps (plain torch, no kernel; for encdec after the frames are encoded
-    into the cache, as tests/test_decode_equivalence.py does); a moe model
-    must drop no slot in either pass."""
+    into the cache, for vlm after the image K/V are, as
+    tests/test_decode_equivalence.py does); a moe model must drop no slot
+    in either pass."""
     from repro_torch.launch.serve import prepare_cache
     from repro_torch.launch.train import make_prefill_step, make_serve_step
     from repro_torch.models import api, moe
@@ -2557,7 +2582,7 @@ def f32_decode_check(torch, cfg, params, tgen, seq, label, card):
         batch = api.make_batch(cfg, tgen, 2, seq, device="cuda")
         full = make_prefill_step(cfg)(params, batch)
         cache = prepare_cache(cfg, params, 2, seq, "cuda",
-                              batch.get("frames"))
+                              batch.get("frames"), batch.get("image_embeds"))
         step = make_serve_step(cfg)
         outs = []
         for i in range(seq):
@@ -2580,6 +2605,19 @@ def f32_decode_check(torch, cfg, params, tgen, seq, label, card):
         f"abs err {e:.3e} (tol rtol {tol} atol {tol}), max |logit| "
         f"{float(full.abs().max()):.3f}, caches {caches}"
         + (f", {len(totals)} routings, 0 slots dropped" if totals else ""))
+
+
+def open_gates(torch, params, label):
+    """Draw the vlm's cross-layer gates uniform in (-1, 1) from seed 2 in
+    place of init's zeros (tanh(0) = 0 makes every cross layer add
+    nothing), and print them."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cross = params["cross_layers"]
+    for n in ("attn_gate", "ffn_gate"):
+        cross[n] = torch.rand(cross[n].shape, generator=gen,
+                              device="cuda") * 2 - 1
+        require(bool((cross[n] != 0).all()), f"{label}: a {n} is 0")
+        say(f"{label}: {n} {[round(g, 6) for g in cross[n].tolist()]}")
 
 
 def lm_slice_phase(torch, card, kernels):
@@ -2640,7 +2678,8 @@ def lm_slice_phase(torch, card, kernels):
         for fn in kernels.values():
             fn.launches = 0
         res = serve(cfg, params, dbatch["tokens"], SERVE_DECODE, "cuda",
-                    frames=dbatch.get("frames"))
+                    frames=dbatch.get("frames"),
+                    image_embeds=dbatch.get("image_embeds"))
         launches = {n: fn.launches for n, fn in kernels.items()}
         # decode launches nothing; whisper's frames are encoded first
         want = {n: 0 for n in kernels}
@@ -2653,9 +2692,14 @@ def lm_slice_phase(torch, card, kernels):
         require(tuple(res["generated"].shape) ==
                 (DECODE_BATCH, SERVE_DECODE),
                 f"{arch} serve: generated {tuple(res['generated'].shape)}")
-        enc = "" if cfg.family != "encdec" else \
-            (f"frames ({DECODE_BATCH}, {cfg.enc_frames}, {cfg.d_model}) "
-             f"encoded into the cross caches in {res['encode_s']:.4f} s, ")
+        enc = ""
+        if cfg.family == "encdec":
+            enc = (f"frames ({DECODE_BATCH}, {cfg.enc_frames}, "
+                   f"{cfg.d_model}) encoded into the cross caches in "
+                   f"{res['encode_s']:.4f} s, ")
+        elif cfg.family == "vlm":
+            enc = (f"image K/V of ({DECODE_BATCH}, {cfg.n_image_tokens}, "
+                   f"{cfg.d_model}) filled in {res['encode_s']:.4f} s, ")
         say(f"{arch} serve on {card}: batch {DECODE_BATCH}, {enc}prompt "
             f"{PROMPT} in {res['prompt_s']:.4f} s, decode "
             f"{SERVE_DECODE} in {res['decode_s']:.4f} s -> "
@@ -2677,6 +2721,8 @@ def lm_slice_phase(torch, card, kernels):
             label = f"{arch} at full width"
         if cfg32.family == "moe":
             cfg32 = cfg32.replace(capacity_factor=MOE_CHECK_CAPACITY)
+        if cfg32.family == "vlm":
+            open_gates(torch, params, label)
         f32_decode_check(torch, cfg32, params, tgen, CHECK_LEN, label, card)
         say(f"{time.perf_counter() - t0:.1f} s for {arch}")
         del params

@@ -7,11 +7,13 @@ For llama3.2-3b (28 layers), falcon-mamba-7b (64 layers), gemma2-9b cut
 to 2 layers, llama4-scout-17b-a16e cut to 4 (one group of 3 chunked layers
 and a global one), kimi-k2-1t-a32b cut to 1 (33.8 GB of bf16 experts a
 layer), zamba2-7b (81 layers: 54 Mamba-2 blocks, 27 applications of the
-shared attention block) and whisper-medium (24 encoder and 24 decoder
-layers; 8 clips of 1,500 frames, the decoder's 448-token context), at
-full width from random bf16 params: one prefill (the shapes
-`chip_smoke.py` runs) and 8 decode steps at batch 8 after a 32-token
-prompt (whisper's frames encoded into the cache first), each under
+shared attention block), whisper-medium (24 encoder and 24 decoder
+layers; 8 clips of 1,500 frames, the decoder's 448-token context) and
+llama-3.2-vision-11b (40 layers: 32 self-attention and 8 gated
+cross-attention layers over 1,601 image tokens), at full width from
+random bf16 params: one prefill (the shapes `chip_smoke.py` runs) and 8
+decode steps at batch 8 after a 32-token prompt (whisper's frames
+encoded into the cache first, the vlm's image K/V filled), each under
 `torch.profiler` after a warm-up and an unprofiled timed run.  From the
 exported trace it prints, per run: the host-clock wall time with and
 without the profiler, the device's busy time
@@ -68,7 +70,10 @@ RUNS = (Run("llama3.2-3b", None, 2, 4096, {FLASH: 28}),
         Run("zamba2-7b", None, 1, 2048, {SCAN: 54, FLASH: 27}),
         # 8 clips of 30 s (1,500 frames) and the decoder's 448-token
         # context: 24 encoder, 24 decoder self- and 24 cross-attention calls
-        Run("whisper-medium", None, 8, 448, {FLASH: 72}))
+        Run("whisper-medium", None, 8, 448, {FLASH: 72}),
+        # 8 groups of 4 self layers and a cross layer, over 2 x 1,601
+        # image tokens: 32 causal and 8 cross flash calls
+        Run("llama-3.2-vision-11b", None, 2, 4096, {FLASH: 40}))
 DECODE_BATCH, PROMPT, DECODE_STEPS = 8, 32, 8
 
 
@@ -181,7 +186,8 @@ def main(argv=None) -> int:
         # `decode` runs three times (warm-up, timed, profiled)
         cache = prepare_cache(cfg, params, DECODE_BATCH,
                               PROMPT + 3 * DECODE_STEPS, "cuda",
-                              dbatch.get("frames"))
+                              dbatch.get("frames"),
+                              dbatch.get("image_embeds"))
         del dbatch
         for i in range(PROMPT):
             _, cache = step(params, cache, toks[:, i:i + 1], i)

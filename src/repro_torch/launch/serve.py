@@ -8,7 +8,9 @@ The prompt is teacher-forced through `make_serve_step` (the decode step, as
 the reference does), then `--decode` tokens are decoded greedily.  For the
 encdec family (whisper) the batch's frames are encoded first (the flash
 kernel, one call an encoder layer) and `prefill_cross` fills each decoder
-layer's cross-attention K/V from the encoder states, as the reference's
+layer's cross-attention K/V from the encoder states; for the vlm family
+(llama-3.2-vision) `prefill_cross` fills each cross layer's K/V from the
+batch's image embeddings (plain products, no kernel), as the reference's
 CLI does.  Prints the decode rate and `ok`; exits nonzero on NaN logits.
 Runs on the CUDA device unless `--device cpu` is given.
 """
@@ -21,36 +23,46 @@ import torch
 
 from repro_torch import configs
 from repro_torch.launch.train import make_serve_step
-from repro_torch.models import api, encdec
+from repro_torch.models import api, encdec, vlm
 from repro_torch.utils.device import resolve_device
 
 
 def prepare_cache(cfg, params, batch_size: int, cache_len: int, device,
-                  frames=None):
+                  frames=None, image_embeds=None):
     """The decode cache of `api.init_cache`; for encdec, with the
-    cross-attention K/V of the encoded (B, T_enc, d_model) `frames`."""
+    cross-attention K/V of the encoded (B, T_enc, d_model) `frames`, for
+    vlm with those of the (B, n_image_tokens, d_model) `image_embeds`."""
     cache = api.init_cache(cfg, batch_size, cache_len, device=device)
-    if cfg.family != "encdec":
+    memory = {"encdec": ("frames", frames),
+              "vlm": ("image_embeds", image_embeds)}.get(cfg.family)
+    if memory is None:
         return cache
-    if frames is None:
-        raise ValueError(f"{cfg.name}: the encdec family decodes against "
-                         f"encoded frames; pass the batch's `frames`")
+    name, embeds = memory
+    if embeds is None:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family decodes "
+                         f"against cross-attention K/V; pass the batch's "
+                         f"`{name}`")
     with torch.inference_mode():
-        enc_out = encdec.encode(cfg, params, frames)
+        if cfg.family == "vlm":
+            return vlm.prefill_cross(cfg, params, cache, embeds)
+        enc_out = encdec.encode(cfg, params, embeds)
         return encdec.prefill_cross(cfg, params, cache, enc_out)
 
 
-def serve(cfg, params, tokens, decode: int, device, frames=None):
+def serve(cfg, params, tokens, decode: int, device, frames=None,
+          image_embeds=None):
     """Teacher-force the (B, P) prompt `tokens`, then decode greedily; for
     encdec, the (B, T_enc, d_model) `frames` are encoded into the cache
-    first.  Returns dict(logits (B, 1, V) of the last step, generated (B,
+    first, for vlm the (B, n_image_tokens, d_model) `image_embeds` fill its
+    image K/V.  Returns dict(logits (B, 1, V) of the last step, generated (B,
     decode), encode_s, prompt_s, decode_s, tok_per_s); times are
     synchronised on a card."""
     dev = torch.device(device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     batch, prompt = tokens.shape
     t_enc = time.perf_counter()
-    cache = prepare_cache(cfg, params, batch, prompt + decode, dev, frames)
+    cache = prepare_cache(cfg, params, batch, prompt + decode, dev, frames,
+                          image_embeds)
     step = make_serve_step(cfg)
     sync()
     t0 = time.perf_counter()
@@ -91,7 +103,8 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     batch = api.make_batch(cfg, gen, args.batch, args.prompt, device=dev)
     res = serve(cfg, params, batch["tokens"], args.decode, dev,
-                frames=batch.get("frames"))
+                frames=batch.get("frames"),
+                image_embeds=batch.get("image_embeds"))
     print(f"{cfg.name}: decoded {args.decode} x batch {args.batch} in "
           f"{res['decode_s']:.2f}s -> {res['tok_per_s']:.1f} tok/s on {dev}")
     if bool(torch.isnan(res["logits"]).any()):

@@ -8,20 +8,23 @@ architecture family exposes the same entry points, dispatched on
     init_cache(cfg, batch_size, cache_len, device=)   -> decode state
     decode_step(cfg, params, cache, tok, pos)         -> (logits, cache)
 
-`batch` is a dict of (B, S) integer `tokens` and `labels`, and for the
-encdec family the (B, T_enc, d_model) `frames` (stub frontend embeddings).
-Ported: dense, moe (llama4-scout, kimi-k2), ssm (Mamba-1), hybrid (zamba2:
-Mamba-2 and a shared attention block) and encdec (whisper: its decode cache
-is filled by `encdec.encode` and `encdec.prefill_cross` first).  vlm raises
-KeyError until its slice lands.  Entry points that make tensors run on the
-CUDA device unless the caller passes `device="cpu"`.
+`batch` is a dict of (B, S) integer `tokens` and `labels`, for the encdec
+family with the (B, T_enc, d_model) `frames` and for the vlm family with
+the (B, n_image_tokens, d_model) `image_embeds` (stub frontend
+embeddings).  Every family of the reference is ported: dense, moe
+(llama4-scout, kimi-k2), ssm (Mamba-1), hybrid (zamba2: Mamba-2 and a
+shared attention block), encdec (whisper: its decode cache is filled by
+`encdec.encode` and `encdec.prefill_cross` first) and vlm
+(llama-3.2-vision: its cache's image K/V by `vlm.prefill_cross`).  Entry
+points that make tensors run on the CUDA device unless the caller passes
+`device="cpu"`.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import dense, encdec, hybrid, moe, ssm
+from repro_torch.models import dense, encdec, hybrid, moe, ssm, vlm
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree_math import tree_map
 
@@ -31,15 +34,13 @@ _FAMILIES = {
     "ssm": ssm,
     "hybrid": hybrid,
     "encdec": encdec,
+    "vlm": vlm,
 }
-NOT_PORTED = ("vlm",)
+NOT_PORTED = ()          # every family of the reference is ported
 
 
 def family_module(cfg: ArchConfig):
     if cfg.family not in _FAMILIES:
-        if cfg.family in NOT_PORTED:
-            raise KeyError(f"family {cfg.family!r} ({cfg.name}) is not ported "
-                           f"to repro_torch yet")
         raise KeyError(f"unknown family {cfg.family!r}")
     return _FAMILIES[cfg.family]
 
@@ -64,6 +65,8 @@ def logits(cfg: ArchConfig, params, batch):
     mod = family_module(cfg)
     if cfg.family == "encdec":
         return mod.forward(cfg, params, batch["tokens"], batch["frames"])
+    if cfg.family == "vlm":
+        return mod.forward(cfg, params, batch["tokens"], batch["image_embeds"])
     return mod.forward(cfg, params, batch["tokens"])
 
 
@@ -82,9 +85,10 @@ def make_batch(cfg: ArchConfig, gen_or_tokens, batch_size: int, seq_len: int,
                device=None):
     """A batch of random tokens drawn from a `torch.Generator`, or built
     around given (batch_size, seq_len) tokens, whose labels are then the
-    next tokens (the last one wraps to the first).  For encdec the
-    generator also draws standard normal `frames` (batch_size, enc_frames,
-    d_model) in the config's dtype."""
+    next tokens (the last one wraps to the first).  The generator also
+    draws, after the tokens and labels, standard normal `frames`
+    (batch_size, enc_frames, d_model) for encdec and `image_embeds`
+    (batch_size, n_image_tokens, d_model) for vlm, in the config's dtype."""
     family_module(cfg)
     dev = resolve_device(device)
     if isinstance(gen_or_tokens, torch.Generator):
@@ -92,12 +96,15 @@ def make_batch(cfg: ArchConfig, gen_or_tokens, batch_size: int, seq_len: int,
         draw = lambda: torch.randint(0, cfg.vocab, (batch_size, seq_len),  # noqa: E731
                                      generator=gen, device=gen.device)
         tokens, labels = draw(), draw()
-        if cfg.family == "encdec":
-            frames = torch.randn(
-                (batch_size, cfg.enc_frames, cfg.d_model), generator=gen,
+        stub = {"encdec": ("frames", cfg.enc_frames),
+                "vlm": ("image_embeds", cfg.n_image_tokens)}.get(cfg.family)
+        if stub is not None:
+            name, t = stub
+            embeds = torch.randn(
+                (batch_size, t, cfg.d_model), generator=gen,
                 device=gen.device).to(dense.torch_dtype(cfg.dtype))
-            return dict(tokens=tokens.to(dev), labels=labels.to(dev),
-                        frames=frames.to(dev))
+            return {"tokens": tokens.to(dev), "labels": labels.to(dev),
+                    name: embeds.to(dev)}
     else:
         tokens = torch.as_tensor(gen_or_tokens, dtype=torch.int64)
         if tuple(tokens.shape) != (batch_size, seq_len):

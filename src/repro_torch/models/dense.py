@@ -118,11 +118,30 @@ def _member_attn(cfg: ArchConfig, p, x, positions, j):
                              **kw)
 
 
-def _layer_body(cfg: ArchConfig, p_j, x, positions, j):
-    h = L.rmsnorm(x, p_j["attn_norm"])
-    x = x + _member_attn(cfg, p_j, h, positions, j)
-    h = L.rmsnorm(x, p_j["ffn_norm"])
-    return x + L.swiglu(p_j, h)
+def swiglu_ffn(cfg: ArchConfig, p_j, h):
+    """The dense layer's FFN, as `run_layers` takes it: (y, aux None)."""
+    return L.swiglu(p_j, h), None
+
+
+def run_layers(cfg: ArchConfig, layers, x, attn, ffn=swiglu_ffn):
+    """Every layer of the stacked (L, ...) `layers` over the residual
+    stream x, group by group: `attn(p_i, h, i)` is layer i's attention
+    output from its normed input h, `ffn(cfg, p_i, h)` its FFN's (y, aux).
+    Inside a group the norms read the residual adds' f32 sums, the next
+    member's attn_norm too; each group starts from the rounded stream
+    (`layers.add_norm`).  Returns (x, [aux of each layer])."""
+    g = group_size(cfg)
+    auxes = []
+    for i in range(cfg.n_layers):
+        p_i = layer_params(layers, i)
+        if i % g == 0:
+            h = L.rmsnorm(x, p_i["attn_norm"])
+        x, h = L.add_norm(x, attn(p_i, h, i), p_i["ffn_norm"])
+        y, aux = ffn(cfg, p_i, h)
+        last = i % g == g - 1
+        x, h = L.add_norm(x, y, None if last else layers["attn_norm"][i + 1])
+        auxes.append(aux)
+    return x, auxes
 
 
 def _logits(cfg: ArchConfig, params, x):
@@ -143,9 +162,8 @@ def forward(cfg: ArchConfig, params, tokens):
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
     g = group_size(cfg)
-    for i in range(cfg.n_layers):
-        x = _layer_body(cfg, layer_params(params["layers"], i), x, positions,
-                        i % g)
+    x, _ = run_layers(cfg, params["layers"], x, lambda p, h, i: _member_attn(
+        cfg, p, h, positions, i % g))
     return _logits(cfg, params, x)
 
 
@@ -200,24 +218,27 @@ def init_cache(cfg: ArchConfig, batch, cache_len, dtype=None, device=None):
             for j in range(g)}
 
 
+def decode_attn(cfg: ArchConfig, cache, pos):
+    """`run_layers`' attention for one decode step: layer i attends over
+    its member's cache, which it updates in place."""
+    g = group_size(cfg)
+    spec = _attn_spec(cfg)
+    cache_len = max(c["k"].shape[2] for c in cache.values())
+
+    def attn(p_i, h, i):
+        j = i % g
+        c = cache[f"m{j}"]
+        return L.decode_attention_block(
+            p_i, h, c["k"][i // g], c["v"][i // g], pos, spec,
+            mode=_member_mode(cfg, j, cache_len), softcap=cfg.softcap,
+            rope_theta=cfg.rope_theta)[0]
+    return attn
+
+
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos):
     """tokens: (B, 1) integer, pos: int -> (logits (B, 1, V) f32, cache).
 
     The caches are updated in place and returned."""
-    x = _embed(cfg, params, tokens)
-    g = group_size(cfg)
-    spec = _attn_spec(cfg)
-    cache_len = max(c["k"].shape[2] for c in cache.values())
-    for i in range(cfg.n_layers):
-        j = i % g
-        p_j = layer_params(params["layers"], i)
-        c = cache[f"m{j}"]
-        h = L.rmsnorm(x, p_j["attn_norm"])
-        out, _, _ = L.decode_attention_block(
-            p_j, h, c["k"][i // g], c["v"][i // g], pos, spec,
-            mode=_member_mode(cfg, j, cache_len), softcap=cfg.softcap,
-            rope_theta=cfg.rope_theta)
-        x = x + out
-        h = L.rmsnorm(x, p_j["ffn_norm"])
-        x = x + L.swiglu(p_j, h)
+    x, _ = run_layers(cfg, params["layers"], _embed(cfg, params, tokens),
+                      decode_attn(cfg, cache, pos))
     return _logits(cfg, params, x), cache

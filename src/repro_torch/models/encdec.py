@@ -63,17 +63,6 @@ def init(cfg: ArchConfig, gen: torch.Generator):
     }
 
 
-def _add_norm(x, a, weight):
-    """(x + a, rmsnorm(x + a)) in the activation dtype.  XLA computes the
-    reference's bf16 residual add in f32 and hands the norm that reads it
-    the f32 sum, while the next residual add reads the sum rounded to
-    bf16; so does this (rounding the sum for the norm too parts most of a
-    bf16 layer's outputs from the reference by a bf16 step).  In f32 it
-    is the plain sum and norm."""
-    s = x.float() + a.float()
-    return s.to(x.dtype), L.rmsnorm(s, weight).to(x.dtype)
-
-
 def _positions(b, s, device):
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(
         b, s)
@@ -82,9 +71,9 @@ def _positions(b, s, device):
 def encoder_layer(cfg: ArchConfig, p_l, x, positions):
     """One bidirectional encoder layer (the reference's scan body)."""
     h = L.rmsnorm(x, p_l["attn_norm"])
-    x, h = _add_norm(x, L.attention_block(p_l, h, positions, _attn_spec(cfg),
-                                          causal=False, use_rope=False),
-                     p_l["ffn_norm"])
+    x, h = L.add_norm(x, L.attention_block(
+        p_l, h, positions, _attn_spec(cfg), causal=False, use_rope=False),
+        p_l["ffn_norm"])
     return x + L.gelu_mlp(p_l, h)
 
 
@@ -109,12 +98,13 @@ def decoder_layer(cfg: ArchConfig, p_l, x, positions, enc_out):
     `enc_out`, the GELU FFN (the reference's scan body)."""
     spec = _attn_spec(cfg)
     h = L.rmsnorm(x, p_l["attn_norm"])
-    x, h = _add_norm(x, L.attention_block(p_l, h, positions, spec,
-                                          causal=True, use_rope=False),
-                     p_l["cross_norm"])
-    x, h = _add_norm(x, L.attention_block(_cross_params(p_l), h, positions,
-                                          spec, use_rope=False, kv_x=enc_out),
-                     p_l["ffn_norm"])
+    x, h = L.add_norm(x, L.attention_block(p_l, h, positions, spec,
+                                           causal=True, use_rope=False),
+                      p_l["cross_norm"])
+    x, h = L.add_norm(x, L.attention_block(_cross_params(p_l), h, positions,
+                                           spec, use_rope=False,
+                                           kv_x=enc_out),
+                      p_l["ffn_norm"])
     return x + L.gelu_mlp(p_l, h)
 
 
@@ -192,10 +182,10 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos):
         h = L.rmsnorm(x, p_l["attn_norm"])
         out, _, _ = L.decode_attention_block(p_l, h, ck[i], cv[i], pos, spec,
                                              use_rope=False)
-        x, h = _add_norm(x, out, p_l["cross_norm"])
+        x, h = L.add_norm(x, out, p_l["cross_norm"])
         q = (h @ p_l["x_wq"]).reshape(b, 1, cfg.n_heads, cfg.hd)
         xattn = L.attend(q, xk[i], xv[i], memory)
-        x, h = _add_norm(x, xattn.reshape(b, 1, -1) @ p_l["x_wo"],
-                         p_l["ffn_norm"])
+        x, h = L.add_norm(x, xattn.reshape(b, 1, -1) @ p_l["x_wo"],
+                          p_l["ffn_norm"])
         x = x + L.gelu_mlp(p_l, h)
     return _logits(params, x), cache

@@ -49,6 +49,24 @@ def init(cfg: ArchConfig, gen: torch.Generator):
     }
 
 
+def _superblock(cfg: ArchConfig, params, x, app, mamba, attn):
+    """Application `app`: its `period` Mamba-2 blocks, `mamba(p_j, h, j)`,
+    then the shared block, whose attention is `attn(h)` (the reference's
+    scan body).  The first norm reads the rounded stream, every later one
+    the f32 sum of the residual add before it (`layers.add_norm`)."""
+    _, _, period = plan(cfg)
+    shared = params["shared"]
+    h = L.rmsnorm(x, params["mamba"]["norm"][app * period])
+    for j in range(period):
+        p_j = D.layer_params(params["mamba"], app * period + j)
+        nxt = (params["mamba"]["norm"][app * period + j + 1]
+               if j + 1 < period else shared["attn_norm"])
+        x, h = L.add_norm(x, mamba(p_j, h, j), nxt)
+    # the shared attention + MLP block: one weight set for every app
+    x, h = L.add_norm(x, attn(h), shared["ffn_norm"])
+    return x + L.swiglu(shared, h)
+
+
 def forward(cfg: ArchConfig, params, tokens):
     """tokens: (B, S) integer -> logits (B, S, V) f32."""
     b, s = tokens.shape
@@ -58,16 +76,16 @@ def forward(cfg: ArchConfig, params, tokens):
                              device=tokens.device)[None].expand(b, s)
     shared = params["shared"]
     spec = D._attn_spec(cfg)
+
+    def mamba(p_j, h, j):
+        return ssm.mamba2_block(p_j, cfg, h)
+
+    def attn(h):
+        return L.attention_block(shared, h, positions, spec, causal=True,
+                                 rope_theta=cfg.rope_theta)
+
     for app in range(n_apps):
-        for j in range(period):
-            p_j = D.layer_params(params["mamba"], app * period + j)
-            x = x + ssm.mamba2_block(p_j, cfg, L.rmsnorm(x, p_j["norm"]))
-        # the shared attention + MLP block: one weight set for every app
-        h = L.rmsnorm(x, shared["attn_norm"])
-        x = x + L.attention_block(shared, h, positions, spec, causal=True,
-                                  rope_theta=cfg.rope_theta)
-        h = L.rmsnorm(x, shared["ffn_norm"])
-        x = x + L.swiglu(shared, h)
+        x = _superblock(cfg, params, x, app, mamba, attn)
     return D._logits(cfg, params, x)
 
 
@@ -109,20 +127,17 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos):
     spec = D._attn_spec(cfg)
     ck, cv = cache["attn"]["k"], cache["attn"]["v"]
     for app in range(n_apps):
-        for j in range(period):
-            p_j = D.layer_params(params["mamba"], app * period + j)
-            y, conv, h = ssm.mamba2_decode(
-                p_j, cfg, L.rmsnorm(x, p_j["norm"]), cache["conv"][app, j],
-                cache["h"][app, j])
+        def mamba(p_j, hin, j):
+            y, conv, h = ssm.mamba2_decode(p_j, cfg, hin,
+                                           cache["conv"][app, j],
+                                           cache["h"][app, j])
             cache["conv"][app, j].copy_(conv)
             cache["h"][app, j].copy_(h)
-            x = x + y
-        hin = L.rmsnorm(x, shared["attn_norm"])
+            return y
+
         # ring == full while pos < cache_len and wraps (windowed) beyond it
-        out, _, _ = L.decode_attention_block(shared, hin, ck[app], cv[app],
-                                             pos, spec, mode="ring",
-                                             rope_theta=cfg.rope_theta)
-        x = x + out
-        hin = L.rmsnorm(x, shared["ffn_norm"])
-        x = x + L.swiglu(shared, hin)
+        x = _superblock(cfg, params, x, app, mamba,
+                        lambda hin: L.decode_attention_block(
+                            shared, hin, ck[app], cv[app], pos, spec,
+                            mode="ring", rope_theta=cfg.rope_theta)[0])
     return D._logits(cfg, params, x), cache

@@ -70,6 +70,35 @@ def mm_f32(a, b):
 
 
 # ---------------------------------------------------------------------------
+# the residual stream
+# ---------------------------------------------------------------------------
+
+def add_norm(x, a, weight=None):
+    """The residual add x + a and the norm that reads it: (x + a in x's
+    dtype, rmsnorm(x + a, weight) in x's dtype, or None without a
+    `weight`).
+
+    The roundings are the reference's as XLA compiles it, not as written.
+    XLA computes a bf16 residual add in f32.  A norm in the same compiled
+    computation reads that f32 sum (XLA drops the bf16 round trip between
+    the add and the norm's f32 convert); the next residual add reads the
+    sum rounded, and so does everything across a step of the reference's
+    layer scan, whose carry is stored in bf16.  Its scan bodies are the
+    layer groups: dense and moe's `group_size` members, the hybrid's
+    `period` Mamba-2 blocks and the shared block, the vlm's self layers
+    and the cross layer.  So inside a group every norm after a residual
+    add reads the f32 sum, the next member's first norm too, and the norm
+    that starts a group (and the final norm) reads the rounded carry;
+    Mamba-1 layers are a scan step each.  Rounding the sum for the norm
+    too parts most of a bf16 layer's outputs from the reference by a
+    bf16 step (`tests/probe_torch_residual_rounding.py`).  In f32 it is
+    the plain sum and norm."""
+    s = x.float() + a.float()
+    h = None if weight is None else rmsnorm(s, weight).to(x.dtype)
+    return s.to(x.dtype), h
+
+
+# ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 

@@ -22,7 +22,8 @@ descending sort, so ties pick the lower expert index first as
 compiles it: the router logits and the experts' gate and up products
 keep an f32 result (`layers.mm_f32`), h and the down product are rounded to
 the activation dtype, the gates are rounded to it before the combine,
-and the shared expert is added after the routed sum.  The attention pattern and the caches are the dense
+and the shared expert, whose products are rounded as the dense FFN's, is
+added after the routed sum.  The attention pattern and the caches are the dense
 family's (`dense.member_kind`): llama4 has chunked layers with every
 `global_period`-th layer global, kimi uniform full attention.
 """
@@ -196,29 +197,36 @@ def _ffn(cfg: ArchConfig, p_j, h):
     y, aux = _routed_ffn(cfg, p_j, h.reshape(-1, h.shape[-1]))
     y = y.reshape(h.shape)
     if cfg.n_shared_experts:
-        y = y + _swiglu(p_j["ws_gate"], p_j["ws_up"], p_j["ws_down"], h)
+        # the dense FFN's roundings: XLA folds the reference's f32 cast
+        # into the router's and the experts' products, not into this one
+        # over the (B, S, D) h, whose gate and up products it rounds
+        y = y + L.swiglu(dict(w_gate=p_j["ws_gate"], w_up=p_j["ws_up"],
+                              w_down=p_j["ws_down"]), h)
     return y, aux
 
 
 def _layer_body(cfg: ArchConfig, p_j, x, positions, j):
-    """One layer, group member j: (x (B, S, D), aux)."""
+    """One layer alone, group member j, from the rounded stream to the
+    rounded stream (the reference's `_layer_body` compiled by itself):
+    (x (B, S, D), aux)."""
     h = L.rmsnorm(x, p_j["attn_norm"])
-    x = x + D._member_attn(cfg, p_j, h, positions, j)
-    y, aux = _ffn(cfg, p_j, L.rmsnorm(x, p_j["ffn_norm"]))
+    x, h = L.add_norm(x, D._member_attn(cfg, p_j, h, positions, j),
+                      p_j["ffn_norm"])
+    y, aux = _ffn(cfg, p_j, h)
     return x + y, aux
 
 
 def forward_with_aux(cfg: ArchConfig, params, tokens):
     """tokens (B, S) -> (logits (B, S, V) f32, aux averaged over layers)."""
     b, s = tokens.shape
-    x = D._embed(cfg, params, tokens)
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
     g = D.group_size(cfg)
+    x, auxes = D.run_layers(
+        cfg, params["layers"], D._embed(cfg, params, tokens),
+        lambda p, h, i: D._member_attn(cfg, p, h, positions, i % g), _ffn)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for i in range(cfg.n_layers):
-        x, aux_i = _layer_body(cfg, D.layer_params(params["layers"], i), x,
-                               positions, i % g)
+    for aux_i in auxes:
         aux = aux + aux_i
     return D._logits(cfg, params, x), aux / cfg.n_layers
 
@@ -243,19 +251,6 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos):
     """tokens (B, 1) integer, pos int -> (logits (B, 1, V) f32, cache); the
     step's B tokens route as one group (capacity >= 8).  The caches are
     updated in place and returned."""
-    x = D._embed(cfg, params, tokens)
-    g = D.group_size(cfg)
-    spec = D._attn_spec(cfg)
-    cache_len = max(c["k"].shape[2] for c in cache.values())
-    for i in range(cfg.n_layers):
-        j = i % g
-        p_j = D.layer_params(params["layers"], i)
-        c = cache[f"m{j}"]
-        h = L.rmsnorm(x, p_j["attn_norm"])
-        out, _, _ = L.decode_attention_block(
-            p_j, h, c["k"][i // g], c["v"][i // g], pos, spec,
-            mode=D._member_mode(cfg, j, cache_len), softcap=cfg.softcap,
-            rope_theta=cfg.rope_theta)
-        x = x + out
-        x = x + _ffn(cfg, p_j, L.rmsnorm(x, p_j["ffn_norm"]))[0]
+    x, _ = D.run_layers(cfg, params["layers"], D._embed(cfg, params, tokens),
+                        D.decode_attn(cfg, cache, pos), _ffn)
     return D._logits(cfg, params, x), cache

@@ -320,7 +320,7 @@ def test_bf16_layers_match_reference_layer_by_layer(attention):
     the reference's state before it (the decoder's with the reference's
     encoder states).  With every attention weight 0 (attention then adds
     exactly 0 on both sides), the norms, residual adds and GELU FFNs are
-    rounded where XLA rounds the reference (`_add_norm`, `gelu_mlp`): one
+    rounded where XLA rounds the reference (`layers.add_norm`, `gelu_mlp`): one
     bf16 step of a term (ATOL_STEP).  With attention, P's rounding too
     (TOL_P)."""
     tol = (TOL_P, TOL_P) if attention else (RTOL_BF16, ATOL_STEP)

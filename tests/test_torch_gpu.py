@@ -927,6 +927,9 @@ _SKV_CASES = [
     (1, 130, 700, 6, 3, 256, True, 64),
     (3, 1, 333, 4, 2, 32, False, None),          # one query
     (1, 700, 1, 4, 2, 64, True, 50),             # one key; rows 50.. none
+    # the vlm's cross-attention, cut heads: GQA r 4, S_kv = 1,601 = 25 * 64
+    # + 1 = 12 * 128 + 65, so the last key tile holds one key of 64
+    (2, 320, 1601, 8, 2, 128, False, None),
 ]
 
 
@@ -991,6 +994,47 @@ def test_reduced_encdec_on_the_card_matches_cpu(cuda):
     cache_c = prepare_cache(cfg, p_cuda, 2, 16, cuda, b_cuda["frames"])
     assert FA.flash_attention.launches - before == cfg.n_enc_layers
     before = FA.flash_attention.launches
+    for i in range(16):
+        lg, cache = step(params, cache, batch["tokens"][:, i:i + 1], i)
+        lg_c, cache_c = step(p_cuda, cache_c, b_cuda["tokens"][:, i:i + 1], i)
+        torch.testing.assert_close(lg_c.cpu(), lg, rtol=1e-4, atol=1e-4)
+    assert FA.flash_attention.launches == before
+    for got_c, want_c in zip(tree_leaves(cache_c), tree_leaves(cache)):
+        torch.testing.assert_close(got_c.cpu(), want_c, rtol=1e-4, atol=1e-4)
+
+
+# -------------------------------- the vlm family -----------------------------
+
+def test_reduced_vlm_on_the_card_matches_cpu(cuda):
+    """Reduced llama-3.2-vision (2 groups of a self and a gated cross layer,
+    nonzero gates), f32: the prefill launches 4 flash calls (2 causal, 2
+    cross onto the image tokens) and matches the CPU's; `prepare_cache`
+    (no launch) and 16 teacher-forced decode steps (no launch) match the
+    CPU's step by step, caches included."""
+    from repro_torch.launch.serve import prepare_cache
+    from repro_torch.launch.train import make_serve_step
+    cfg = configs.get("llama-3.2-vision-11b").reduced().replace(
+        n_layers=4, dtype="float32")
+    params = lm_api.init_params(cfg, 0, device="cpu")
+    gates = torch.Generator().manual_seed(2)
+    for n in ("attn_gate", "ffn_gate"):
+        params["cross_layers"][n] = torch.rand(2, generator=gates) * 2 - 1
+    batch = lm_api.make_batch(cfg, torch.Generator().manual_seed(1), 2, 40,
+                              device="cpu")
+    want = make_prefill_step(cfg)(params, batch)
+    p_cuda = tree_map(lambda x: x.to(cuda), params)
+    b_cuda = {k: v.to(cuda) for k, v in batch.items()}
+    before = FA.flash_attention.launches
+    got = make_prefill_step(cfg)(p_cuda, b_cuda)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches - before == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    step = make_serve_step(cfg)
+    cache = prepare_cache(cfg, params, 2, 16, "cpu",
+                          image_embeds=batch["image_embeds"])
+    before = FA.flash_attention.launches
+    cache_c = prepare_cache(cfg, p_cuda, 2, 16, cuda,
+                            image_embeds=b_cuda["image_embeds"])
     for i in range(16):
         lg, cache = step(params, cache, batch["tokens"][:, i:i + 1], i)
         lg_c, cache_c = step(p_cuda, cache_c, b_cuda["tokens"][:, i:i + 1], i)

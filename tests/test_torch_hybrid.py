@@ -293,5 +293,5 @@ def test_serve_cli_runs_zamba2_on_the_cpu():
 def test_hybrid_family_is_registered():
     cfg = configs.get(ARCH)
     assert api.family_module(cfg) is hybrid
-    assert api.NOT_PORTED == ("vlm",)
+    assert api.NOT_PORTED == ()
     assert hybrid.plan(cfg) == (54, 27, 2)

@@ -187,23 +187,23 @@ def test_unknown_arch_raises():
                                   "zamba2-7b", "whisper-medium",
                                   "llama-3.2-vision-11b"])
 def test_unported_families_raise(arch):
-    """A family not ported yet raises; one ported since (moe, hybrid,
-    encdec) does what the reference does: the reference's tree, finite
-    (B, S, V) logits (whisper's from the frames `make_batch` draws)."""
+    """The five families that were not ported when this test was written
+    are all ported now, and each does what the reference does: the
+    reference's tree, finite (B, S, V) logits (whisper's from the frames
+    and the vlm's from the image embeddings that `make_batch` draws)."""
     cfg = configs.get(arch).reduced()
-    if cfg.family not in api.NOT_PORTED:
-        _reference_tree(cfg, jconfigs.get(arch).reduced(), 0)
-        params = api.init_params(cfg, 0, device="cpu")
-        batch = api.make_batch(cfg, torch.Generator().manual_seed(0), 2, 8,
-                               device="cpu")
-        logits = api.logits(cfg, params, batch)
-        assert logits.shape == (2, 8, cfg.vocab)
-        assert bool(torch.isfinite(logits).all())
-        return
-    with pytest.raises(KeyError, match="not ported"):
-        api.init_params(cfg, 0, device="cpu")
-    with pytest.raises(KeyError, match="not ported"):
-        api.logits(cfg, {}, {})
+    assert cfg.family not in api.NOT_PORTED
+    _reference_tree(cfg, jconfigs.get(arch).reduced(), 0)
+    params = api.init_params(cfg, 0, device="cpu")
+    batch = api.make_batch(cfg, torch.Generator().manual_seed(0), 2, 8,
+                           device="cpu")
+    if cfg.family == "vlm":
+        assert batch["image_embeds"].shape == (2, cfg.n_image_tokens,
+                                               cfg.d_model)
+        assert batch["image_embeds"].dtype == torch.bfloat16
+    logits = api.logits(cfg, params, batch)
+    assert logits.shape == (2, 8, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_entry_points_do_not_fall_back_to_the_cpu():
